@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface under ``nrdsample_tpu_torch/_build/``
+at first use (named by a hash of the sources and the ``csrc/*.cuh`` headers,
+so an edit rebuilds), then loaded with ``ctypes``. ``--fmad=false`` keeps the
+kernels' arithmetic the unfused sequence of the plain PyTorch versions; no
+fast-math flag is given, so ``1.0f / det`` stays IEEE.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+# C signatures: every pointer and the stream as c_void_p
+SIGNATURES = {
+    # origin, direction, p0, e1, e2, n_tris, t_max (nullable), t_max scalar,
+    # n_rays, t, u, v, tri, stream
+    "nrd_dense_hit": [_P, _P, _P, _P, _P, _I32, _P, _F32, _I64, _P, _P, _P, _P, _P],
+    # origin, direction, p0, e1, e2, intensity, n_tris, n_rays, out, stream
+    "nrd_emissive_probe": [_P, _P, _P, _P, _P, _P, _I32, _I64, _P, _P],
+}
+
+_lib = None
+BUILD_SECONDS = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def sources(suffixes=(".cu",)) -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(suffixes))
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels unless a library built from the same sources
+    and headers exists; returns its path."""
+    global BUILD_SECONDS
+    srcs = sources()
+    h = hashlib.sha256()
+    for s in sources((".cu", ".cuh")):
+        with open(s, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = os.path.join(BUILD_DIR, f"libnrd_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *srcs]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built and loaded on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaGetLastError() code returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def check_tensor(name: str, x, dtype, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous tensor of ``dtype`` and ``shape`` on
+    ``device``: the kernels read raw pointers with this layout."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")

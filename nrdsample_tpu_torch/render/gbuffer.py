@@ -1,0 +1,128 @@
+"""Hit decoding and material fetch (counterpart of
+``nrdsample_tpu/render/gbuffer.py``) for untextured, uninstanced scenes:
+``build_context`` rejects textures, normal maps and instance scales."""
+
+from __future__ import annotations
+
+import torch
+
+from nrdsample_tpu_torch import config as cfgmod
+from nrdsample_tpu_torch.mathlib import geometry as geo
+from nrdsample_tpu_torch.ops import traversal
+from nrdsample_tpu_torch.render import lighting
+from nrdsample_tpu_torch.scene.types import Scene
+
+T_MAX = traversal.T_MAX
+
+_COBALT = (0.672411, 0.637331, 0.585456)
+
+
+def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.Tensor,
+               sun_dir: torch.Tensor, tan_sun_radius, white_furnace: bool = False,
+               emission_scale=1.0, forced_material=None, emission_scale_cubes=None) -> dict:
+    """Geometry + material props of each ray's hit. On a miss lemi is the
+    sky radiance along the ray and base_color is 0."""
+    tri = torch.clamp_min(hit["tri"], 0).long()
+    miss = hit["tri"] < 0
+    u = hit["u"]
+    v_bc = hit["v"]
+    t = hit["t"]
+
+    tr = scene.tris
+    f32 = tr.p0.dtype
+    # one wide row gather for every per-triangle attribute (material id rides
+    # along as an exact float)
+    tri_pack = torch.cat(
+        [tr.p0, tr.e1, tr.e2, tr.n0, tr.n1, tr.n2, tr.material.to(f32)[:, None]], dim=1
+    )
+    g = tri_pack[tri]
+    p0, e1, e2 = g[..., 0:3], g[..., 3:6], g[..., 6:9]
+    tn0, tn1, tn2 = g[..., 9:12], g[..., 12:15], g[..., 15:18]
+    mat = g[..., 18].to(torch.int64)
+
+    x = p0 + u[..., None] * e1 + v_bc[..., None] * e2
+    x = torch.where(miss[..., None], origin + direction * T_MAX, x)
+
+    w = 1.0 - u - v_bc
+    n_smooth = geo.normalize(w[..., None] * tn0 + u[..., None] * tn1 + v_bc[..., None] * tn2)
+    n_geom = geo.normalize(geo.cross(e1, e2))
+    view = -direction
+
+    # two-sided: flip normals to face the incoming ray
+    n_geom = n_geom * torch.sign(geo.dot3(n_geom, view))[..., None]
+    n_smooth = n_smooth * torch.sign(geo.dot3(n_smooth, view))[..., None]
+
+    mats = scene.materials
+    mat_pack = torch.cat(
+        [mats.base_color, mats.roughness[:, None], mats.metalness[:, None],
+         mats.emission, mats.flags.to(f32)[:, None]], dim=1
+    )
+    mg = mat_pack[mat]
+    base_color = mg[..., 0:3]
+    roughness = mg[..., 3]
+    metalness = mg[..., 4]
+    flags = mg[..., 8].to(torch.int32)
+    if emission_scale_cubes is not None:
+        is_cube = (flags & cfgmod.FLAG_FORCED_EMISSION) != 0
+        e_scale = torch.where(is_cube, torch.as_tensor(emission_scale_cubes, dtype=f32),
+                              torch.as_tensor(emission_scale, dtype=f32))[..., None]
+    else:
+        e_scale = emission_scale
+    emission = mg[..., 5:8] * e_scale
+
+    if white_furnace:
+        base_color = torch.ones_like(base_color)
+        emission = torch.zeros_like(emission)
+
+    if forced_material is not None:
+        # GYPSUM = flat white diffuse, COBALT = metal whose roughness encodes
+        # the original base color; misses keep their material
+        fm = torch.as_tensor(forced_material).to(torch.int32)
+        gypsum = (fm == int(cfgmod.ForcedMaterial.GYPSUM)) & ~miss
+        cobalt = (fm == int(cfgmod.ForcedMaterial.COBALT)) & ~miss
+        prod = torch.clamp(base_color[..., 0] * base_color[..., 1] * base_color[..., 2], 0.0, 1.0)
+        cobalt_rough = torch.pow(prod, 1.0 / 3.0)
+        roughness = torch.where(gypsum, 1.0, torch.where(cobalt, cobalt_rough, roughness))
+        metalness = torch.where(gypsum, 0.0, torch.where(cobalt, 1.0, metalness))
+        cobalt_color = torch.tensor(_COBALT, dtype=base_color.dtype, device=base_color.device)
+        base_color = torch.where(
+            gypsum[..., None], 0.5, torch.where(cobalt[..., None], cobalt_color, base_color)
+        )
+
+    sky = lighting.sky_intensity(direction, sun_dir, tan_sun_radius, white_furnace)
+    lemi = torch.where(miss[..., None], sky, emission)
+    base_color = torch.where(miss[..., None], 0.0, base_color)
+
+    zeros = torch.zeros_like(t)
+    return {
+        "miss": miss,
+        "t": torch.where(miss, T_MAX, t),
+        "x": x,
+        "v": view,
+        "n": n_smooth,
+        "n_geom": n_geom,
+        "mat": mat.to(torch.int32),
+        "tri": hit["tri"],
+        "base_color": base_color,
+        "roughness": roughness,
+        "metalness": metalness,
+        "lemi": lemi,
+        "flags": flags,
+        # vertex-normal divergence across the triangle edges, worst edge
+        "curvature": torch.where(
+            miss, 0.0,
+            torch.maximum(
+                geo.length(tn1 - tn0) * geo.positive_rcp(geo.length(e1)),
+                geo.length(tn2 - tn0) * geo.positive_rcp(geo.length(e2)),
+            ) + zeros,
+        ),
+        "mip": zeros,
+    }
+
+
+def apply_overrides(props: dict, roughness_override, metalness_override) -> dict:
+    """Settings-driven roughness/metalness overrides."""
+    out = dict(props)
+    out["roughness"] = torch.clamp(props["roughness"] + roughness_override, 0.0, 1.0)
+    out["metalness"] = torch.clamp(props["metalness"] + metalness_override, 0.0, 1.0)
+    return out

@@ -1,0 +1,229 @@
+"""The port's whole frame against the JAX package's, its golden gate, the
+branches left for later slices, and its independence from JAX.
+
+Two REFERENCE frames of the Cornell box at 32x32 go through both
+render_frame functions from the same scene, camera and settings. Discrete
+choices (lobe, reservoir take, edge hits) can flip on an ULP of a
+transcendental, so per output plane at most 0.5% of pixels may differ by
+more than 1e-3 * (1 + |ref|), and the image means agree within 1e-3
+relative. The cornellbox-000 golden is checked at tests/test_golden.py's
+tolerance (2% of the image's dynamic scale per 8x8 tile mean)."""
+
+import ast
+import dataclasses
+import glob
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from nrdsample_tpu.config import Settings as JSettings
+from nrdsample_tpu.ops import traversal as jtraversal
+from nrdsample_tpu.pipeline import frame as jframe, replay
+from nrdsample_tpu.scene import procedural as jproc
+from nrdsample_tpu.scene.types import look_at as jlook_at
+from nrdsample_tpu_torch import config, convert
+from nrdsample_tpu_torch.config import Denoiser, NrdMode, OnScreen, RenderConfig, TracingMode
+from nrdsample_tpu_torch.ops import traversal
+from nrdsample_tpu_torch.pipeline import frame, records
+from nrdsample_tpu_torch.scene import procedural
+from nrdsample_tpu_torch.scene.types import look_at
+
+OUTLIER_FRAC = 0.005
+MEAN_REL = 1e-3
+RES = 32
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _np_leaves(obj):
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = _np_leaves(v)
+        elif v is None or isinstance(v, bool):
+            out[f.name] = v
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def _outlier_frac(ref, got):
+    ref = np.asarray(ref, np.float64)
+    got = np.asarray(got, np.float64)
+    bad = np.abs(ref - got) > 1e-3 * (1.0 + np.abs(ref))
+    return bad.reshape(bad.shape[0], -1).any(-1).mean()
+
+
+@pytest.fixture(scope="module")
+def two_frames():
+    """[(JAX outputs, port outputs)] for frames 0 and 1, plus both histories."""
+    jctx, jscene = jtraversal.build_context(jproc.cornell_box())
+    jc = jlook_at([0.0, -3.2, 1.0], [0.0, 0.0, 1.0], fov_y_deg=39.0)
+    js = JSettings(sun_elevation=jnp.float32(-30.0), disable_shadows=jnp.int32(1))
+    jcfg = replay.cfg_from_render({}, res=RES)
+    fn = jax.jit(lambda sc, c, st, h: jframe.render_frame(jctx, sc, c, jcfg, st, h))
+    ctx, scene = traversal.build_context(convert.scene_from_numpy(_np_leaves(jscene)))
+    cam = convert.camera_from_numpy(_np_leaves(jc))
+    settings = convert.settings_from_numpy(_np_leaves(js))
+    cfg = RenderConfig(width=RES, height=RES)
+    jh, h = jframe.History.create(jcfg), frame.History.create(cfg)
+    pairs = []
+    for _ in range(2):
+        jout, jh = fn(jscene, jc, js, jh)
+        out, h = frame.render_frame(ctx, scene, cam, cfg, settings, h)
+        pairs.append((jax.tree.map(np.asarray, jout), out))
+    return pairs, jh, h
+
+
+@pytest.mark.parametrize("index", [0, 1])
+@pytest.mark.parametrize("plane", ["color", "view_z", "normal", "shadow", "diff_radiance",
+                                   "spec_radiance"])
+def test_frame_matches_jax(two_frames, index, plane):
+    want, got = two_frames[0][index]
+    g = got[plane]
+    assert g.dtype == torch.float32 and tuple(g.shape) == want[plane].shape
+    assert _outlier_frac(want[plane], g.numpy()) <= OUTLIER_FRAC
+
+
+@pytest.mark.parametrize("index", [0, 1])
+def test_frame_mean_matches_jax(two_frames, index):
+    want, got = two_frames[0][index]
+    w, g = float(want["color"].mean()), float(got["color"].mean())
+    assert abs(g - w) <= MEAN_REL * abs(w)
+    assert bool(torch.isfinite(got["color"]).all()) and g > 0.0
+
+
+def test_history_matches_jax(two_frames):
+    _, jh, h = two_frames
+    assert h.frame_index.dtype == torch.int32 and int(h.frame_index) == int(jh.frame_index) == 2
+    assert h.reference.frames.dtype == torch.int32 and int(h.reference.frames) == 2
+    assert _outlier_frac(np.asarray(jh.reference.accum), h.reference.accum.numpy()) <= OUTLIER_FRAC
+
+
+def test_cornellbox_golden_through_the_port():
+    data = np.load(os.path.join(REPO, "Tests", "golden", "cornellbox-000.npz"))
+    res = int(data["res"])
+    settings, cam, render, animation = records.load_record_full(
+        os.path.join(REPO, "Tests", "cornellbox.json"), 0)
+    assert render == {} and animation is None
+    cfg = RenderConfig(width=res, height=res)
+    ctx, scene = traversal.build_context(procedural.cornell_box())
+    out, _ = frame.render_frame(ctx, scene, cam, cfg, settings, frame.History.create(cfg),
+                                reset_history=True)
+    img = out["color"].numpy().reshape(res, res, 3)
+    tiles = img.reshape(res // 8, 8, res // 8, 8, 3).mean(axis=(1, 3))
+    scale = max(float(data["std"]), 0.05)
+    np.testing.assert_allclose(tiles, data["tile_means"], atol=0.02 * scale + 1e-4)
+    assert abs(float(img.mean()) - float(data["mean"])) < 0.02 * scale + 1e-4
+
+
+def test_cam_fov_and_blink_settings():
+    """camFov replaces the camera's FoV; blink only touches forced-emission
+    materials, which the Cornell box has none of."""
+    ctx, scene = traversal.build_context(procedural.cornell_box())
+    cfg = RenderConfig(width=16, height=16)
+    cam = look_at([0.0, -3.2, 1.0], [0.0, 0.0, 1.0], fov_y_deg=39.0)
+    base = config.make_settings(sun_elevation=-30.0, disable_shadows=1)
+    ref, _ = frame.render_frame(ctx, scene, cam, cfg, base, frame.History.create(cfg))
+    same_fov = dataclasses.replace(base, cam_fov=torch.tensor(39.0), blink=torch.tensor(1, dtype=torch.int32))
+    out, _ = frame.render_frame(ctx, scene, cam, cfg, same_fov, frame.History.create(cfg))
+    torch.testing.assert_close(out["color"], ref["color"], rtol=1e-5, atol=1e-5)
+    wide = dataclasses.replace(base, cam_fov=torch.tensor(80.0))
+    out, _ = frame.render_frame(ctx, scene, cam, cfg, wide, frame.History.create(cfg))
+    assert not torch.allclose(out["view_z"], ref["view_z"])
+
+
+LATER_CONFIGS = {
+    "reblur": dict(denoiser=Denoiser.REBLUR),
+    "relax": dict(denoiser=Denoiser.RELAX),
+    "neural": dict(denoiser=Denoiser.NEURAL),
+    "sharc": dict(use_sharc=True),
+    "l1_cache": dict(use_l1_cache=True),
+    "taa": dict(use_taa=True),
+    "psr": dict(psr_bounce_num=1),
+    "half": dict(tracing_mode=TracingMode.HALF),
+    "nrd_sh": dict(nrd_mode=NrdMode.SH),
+    "post": dict(enable_post=True),
+    "on_screen": dict(on_screen=OnScreen.BASE_COLOR),
+    "validation_overlay": dict(use_validation_overlay=True),
+    "inf_stress": dict(use_inf_stress_test=True),
+    "drs_stress": dict(use_drs_stress_test=True),
+    "firefly": dict(use_firefly_test=True),
+    "material_id": dict(use_material_id_test=True),
+    "sanitization": dict(use_sanitization=True),
+    "hair_sss": dict(use_hair_sss=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LATER_CONFIGS))
+def test_later_config_branches_raise(name):
+    cfg = RenderConfig(width=8, height=8, **LATER_CONFIGS[name])
+    with pytest.raises(NotImplementedError):
+        frame.History.create(cfg)
+    ctx, scene = traversal.build_context(procedural.cornell_box())
+    ok_cfg = RenderConfig(width=8, height=8)
+    with pytest.raises(NotImplementedError):
+        frame.render_frame(ctx, scene, look_at([0, -3, 1], [0, 0, 1]), cfg, config.Settings(),
+                           frame.History.create(ok_cfg))
+
+
+def _scene_variant(name):
+    scene = procedural.cornell_box()
+    if name == "textures":
+        return dataclasses.replace(scene, textures=object())
+    if name == "alpha_test":
+        return dataclasses.replace(scene, has_alpha_test=True)
+    if name == "instance_scales":
+        return dataclasses.replace(scene, tri_instance=torch.zeros(scene.num_tris, dtype=torch.int32),
+                                   instance_scales=torch.ones(1, 10))
+    if name == "transparent":
+        flags = scene.materials.flags.clone()
+        flags[4] = config.FLAG_TRANSPARENT
+        return dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, flags=flags))
+    if name == "over_1024_tris":
+        tris = scene.tris
+        reps = 1025 // tris.count + 1
+        big = type(tris)(**{f.name: getattr(tris, f.name).repeat(reps, *([1] * (getattr(tris, f.name).dim() - 1)))
+                            for f in dataclasses.fields(tris)})
+        return dataclasses.replace(scene, tris=big)
+    if name == "over_512_emitters":
+        ids = torch.arange(513, dtype=torch.int32) % scene.num_tris
+        return dataclasses.replace(scene, emissive_tris=ids, emissive_count=torch.tensor(513, dtype=torch.int32))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["textures", "alpha_test", "instance_scales", "transparent",
+                                  "over_1024_tris", "over_512_emitters"])
+def test_later_scene_branches_raise(name):
+    with pytest.raises(NotImplementedError):
+        traversal.build_context(_scene_variant(name))
+
+
+def test_cluster_mode_raises():
+    with pytest.raises(NotImplementedError):
+        traversal.build_context(procedural.cornell_box(), mode="cluster")
+
+
+def test_port_imports_no_jax():
+    """An AST scan of every module of the port: no ``import jax`` and no
+    ``from jax ...`` (nor of the JAX package)."""
+    files = glob.glob(os.path.join(REPO, "nrdsample_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "nrdsample_tpu"), f"{path}: imports {n}"
