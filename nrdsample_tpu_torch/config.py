@@ -13,6 +13,8 @@ from typing import Any
 
 import torch
 
+from nrdsample_tpu_torch.device import resolve
+
 
 class NrdMode(enum.IntEnum):
     NORMAL = 0
@@ -206,11 +208,10 @@ class Settings:
 
 def make_settings(device=None, **values) -> Settings:
     """Settings with the given fields overridden from Python numbers, each
-    cast to its field's dtype, on ``device``."""
+    cast to its field's dtype, on ``device`` (the CUDA card when None)."""
     s = Settings()
     kw = {k: torch.tensor(v, dtype=getattr(s, k).dtype) for k, v in values.items()}
-    s = dataclasses.replace(s, **kw)
-    return s.to(device) if device is not None else s
+    return dataclasses.replace(s, **kw).to(resolve(device))
 
 
 def sun_direction(settings: Settings) -> torch.Tensor:

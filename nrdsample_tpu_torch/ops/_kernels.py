@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface under ``nrdsample_tpu_torch/_build/``
-at first use (named by a hash of the sources and the ``csrc/*.cuh`` headers,
-so an edit rebuilds), then loaded with ``ctypes``. ``--fmad=false`` keeps the
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``
+(all started together) and linked into one shared library with a plain C
+interface under ``nrdsample_tpu_torch/_build/`` at first use (named by a hash
+of the sources and the ``csrc/*.cuh`` headers, so an edit rebuilds), then
+loaded with ``ctypes``. ``--fmad=false`` keeps the
 kernels' arithmetic the unfused sequence of the plain PyTorch versions; no
 fast-math flag is given, so ``1.0f / det`` stays IEEE.
 """
@@ -35,6 +36,11 @@ SIGNATURES = {
     "nrd_dense_hit": [_P, _P, _P, _P, _P, _I32, _P, _F32, _I64, _P, _P, _P, _P, _P],
     # origin, direction, p0, e1, e2, intensity, n_tris, n_rays, out, stream
     "nrd_emissive_probe": [_P, _P, _P, _P, _P, _P, _I32, _I64, _P, _P],
+    # origin, direction, t_max, order, keys, slab, n_clusters, n_packets,
+    # any_hit, t, u, v, tri, stream
+    "nrd_packet_hit": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P],
+    # img, h, w, c, pos, n, out, stream
+    "nrd_bilinear_sample": [_P, _I32, _I32, _I32, _P, _I64, _P, _P],
 }
 
 _lib = None
@@ -70,18 +76,28 @@ def build(verbose: bool = False) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # one nvcc per source, all at once, then one link
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *compile_flags, *(["-Xptxas", "-v"] if verbose else []),
+                                   "-c", "-o", o, s], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [(p, *p.communicate()) for p in procs]
+        failed = [err for p, _, err in logs if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", so, *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        if verbose:
+            print("".join(err for _, _, err in logs), end="")
+        os.replace(so, out)
     BUILD_SECONDS = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
     return out
 
 

@@ -11,14 +11,16 @@ import numpy as np
 import torch
 
 from nrdsample_tpu_torch.config import Settings
+from nrdsample_tpu_torch.device import resolve
 from nrdsample_tpu_torch.scene.types import Camera
 
 RECORD_VERSIONS = (1, 2)
 
 
 def dict_to_record(d: dict, device=None) -> tuple[Settings, Camera]:
-    """(Settings, Camera) of one record dict: integer settings become int32
-    and the rest float32, as in the JAX package."""
+    """(Settings, Camera) of one record dict on ``device`` (the CUDA card when
+    None): integer settings become int32 and the rest float32, as in the JAX
+    package."""
     if d.get("version") not in RECORD_VERSIONS:
         raise ValueError(f"unknown record version {d.get('version')}")
     s = Settings(**{
@@ -40,9 +42,8 @@ def dict_to_record(d: dict, device=None) -> tuple[Settings, Camera]:
         focal_distance=f32(c["focal_distance"]),
         ortho=f32(c["ortho"]),
     )
-    if device is not None:
-        s, cam = s.to(device), cam.to(device)
-    return s, cam
+    device = resolve(device)
+    return s.to(device), cam.to(device)
 
 
 def load_record_full(path: str, index: int, device=None):

@@ -95,10 +95,13 @@ def direct_sun_lighting(n, v, base_color, metalness, roughness, sun_dir,
 
 
 def sun_shadow_ray_params(x, n, sun_dir, tan_angular_radius, pixel_idx, frame,
-                          unproject, view_z, dim: int = 7000):
+                          unproject, view_z, dim: int = 7000, rnd=None):
     """Jittered sun-cone visibility ray (origin, direction), for the batched
-    shadow launch of the path tracer."""
-    rnd = rng.uniform2(pixel_idx, frame, dim)
+    shadow launch of the path tracer. ``rnd`` overrides the (n, 2) disc
+    sample (blue noise under the temporal denoisers); the default is the
+    white PCG stream."""
+    if rnd is None:
+        rnd = rng.uniform2(pixel_idx, frame, dim)
     disk = sampling.cosine_ray(rnd)[..., :2] * tan_angular_radius
     bx, by = sun_basis(sun_dir)
     sdir = geo.normalize(bx * disk[..., 0:1] + by * disk[..., 1:2] + sun_dir)

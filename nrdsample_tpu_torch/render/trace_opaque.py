@@ -15,7 +15,7 @@ import torch
 from nrdsample_tpu_torch import config as cfgmod
 from nrdsample_tpu_torch.config import Denoiser, RenderConfig, Settings, TracingMode
 from nrdsample_tpu_torch.denoise.reblur import spec_magic_curve
-from nrdsample_tpu_torch.mathlib import brdf, color, geometry as geo, rng, sampling
+from nrdsample_tpu_torch.mathlib import bluenoise, brdf, color, geometry as geo, rng, sampling
 from nrdsample_tpu_torch.ops import traversal
 from nrdsample_tpu_torch.render import emissive_is, gbuffer, lighting, raycone
 from nrdsample_tpu_torch.scene import camera as cam_mod
@@ -23,11 +23,11 @@ from nrdsample_tpu_torch.scene.types import Camera, Scene
 
 
 def check_config_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for every RenderConfig branch the dense
-    REFERENCE slice does not port, naming the slice that brings it."""
+    """Raise NotImplementedError for every RenderConfig branch the port does
+    not have yet, naming the slice that brings it."""
     later = {
-        "denoiser != REFERENCE (REBLUR: slice 2, RELAX/NEURAL: slice 3)":
-            cfg.denoiser != Denoiser.REFERENCE,
+        "denoiser RELAX or NEURAL (slice 3)":
+            cfg.denoiser not in (Denoiser.REFERENCE, Denoiser.REBLUR),
         "use_sharc (slice 3)": cfg.use_sharc,
         "use_confidence (slice 3)": cfg.use_confidence,
         "use_l1_cache (slice 3)": cfg.use_l1_cache,
@@ -46,6 +46,16 @@ def check_config_supported(cfg: RenderConfig) -> None:
     missing = [name for name, on in later.items() if on]
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def _shadow_rnd(cfg: RenderConfig, pixel_idx, frame, dim: int):
+    """USE_BLUE_NOISE_FOR_SHADOWS: the blue-noise disc sample of the sun-shadow
+    cone under the temporal denoisers; None (the white PCG stream) under
+    REFERENCE accumulation, which wants an equidistributed per-pixel
+    sequence."""
+    if not cfg.use_blue_noise or cfg.denoiser == Denoiser.REFERENCE:
+        return None
+    return bluenoise.blue2(pixel_idx, cfg.width, frame, dim)
 
 
 def estimate_diffuse_probability(props: dict, use_magic_boost: bool = False):
@@ -257,6 +267,7 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
             sxo, sdir = lighting.sun_shadow_ray_params(
                 props["x"], props["n_geom"], sun_dir, tan_sun, pixel_idx, frame,
                 unproject, view_z_b, dim=dim_base + 5,
+                rnd=_shadow_rnd(cfg, pixel_idx, frame, dim_base + 5),
             )
             l_hit0 = props["lemi"]             # shadow = 0
             l_hit1 = direct + props["lemi"]    # shadow = 1
@@ -419,7 +430,7 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
 
     p_sxo, p_sdir = lighting.sun_shadow_ray_params(
         props["x"], props["n_geom"], sun_dir, tan_sun, pixel_idx, frame,
-        unproject, view_z, dim=501,
+        unproject, view_z, dim=501, rnd=_shadow_rnd(cfg, pixel_idx, frame, 501),
     )
     paths = trace_paths(ctx, scene, cam, cfg, settings, frame, props, pixel_idx,
                         cone0=cone, primary_shadow=(p_sxo, p_sdir))

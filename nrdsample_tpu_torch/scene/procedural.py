@@ -1,6 +1,6 @@
 """Procedural test scenes (counterpart of ``nrdsample_tpu/scene/procedural.py``):
-the Cornell box and the kitchen, built with the same host numpy code so the
-arrays equal the JAX builders' exactly."""
+the Cornell box, the shader balls and the kitchen, built with the same host
+numpy code so the arrays equal the JAX builders' exactly."""
 
 from __future__ import annotations
 
@@ -44,6 +44,44 @@ def make_box(center, size, flip=False):
     else:
         idx[~wrong] = idx[~wrong][:, ::-1]
     return verts, idx
+
+
+def make_sphere(center, radius, n_theta=16, n_phi=24):
+    """UV sphere with smooth vertex normals."""
+    c = np.asarray(center, np.float32)
+    theta = np.linspace(0, np.pi, n_theta + 1)
+    phi = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    t, p = np.meshgrid(theta, phi, indexing="ij")
+    pts = np.stack(
+        [np.sin(t) * np.cos(p), np.sin(t) * np.sin(p), np.cos(t)], axis=-1
+    ).reshape(-1, 3)
+    verts = (c + radius * pts).astype(np.float32)
+    normals = pts.astype(np.float32)
+    idx = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            a = i * n_phi + j
+            b = i * n_phi + (j + 1) % n_phi
+            c2 = (i + 1) * n_phi + j
+            d = (i + 1) * n_phi + (j + 1) % n_phi
+            if i > 0:
+                idx.append([a, c2, b])
+            if i < n_theta - 1:
+                idx.append([b, c2, d])
+    return verts, np.array(idx, np.int32), normals
+
+
+def make_plane(center, size, normal_axis=2):
+    c = np.asarray(center, np.float32)
+    h = np.asarray(size, np.float32) * 0.5
+    if normal_axis == 2:
+        v, i = _quad(
+            c + [-h[0], -h[1], 0], c + [h[0], -h[1], 0],
+            c + [h[0], h[1], 0], c + [-h[0], h[1], 0],
+        )
+    else:
+        raise NotImplementedError
+    return v, i
 
 
 def merge_meshes(meshes):
@@ -145,6 +183,43 @@ def cornell_box(furnace: bool = False, light_intensity: float = 17.0) -> Scene:
         (tb_v, tb_i, None, 4),
     ]
     return _assemble(parts, materials, max_emissive=8)
+
+
+def shader_balls(grid: int = 3, sphere_res: int = 24) -> Scene:
+    """Grid of spheres with varying roughness/metalness over a floor plane.
+
+    Stands in for the ShaderBalls glTF scene (BASELINE config 2): exercises the
+    probabilistic diffuse/specular lobe split + ray cones + REBLUR.
+    """
+    parts = []
+    n_mats = grid * grid + 1
+    base_color, metal, rough, emission = [], [], [], []
+    # floor
+    fv, fi = make_plane([0, 0, 0], [20, 20])
+    parts.append((fv, fi, None, 0))
+    base_color.append([0.5, 0.5, 0.5])
+    metal.append(0.0)
+    rough.append(0.6)
+    emission.append([0, 0, 0])
+    mat_id = 1
+    for i in range(grid):
+        for j in range(grid):
+            x = (i - (grid - 1) / 2) * 2.2
+            y = (j - (grid - 1) / 2) * 2.2
+            sv, si, sn = make_sphere([x, y, 0.9], 0.9, sphere_res, sphere_res + 8)
+            parts.append((sv, si, sn, mat_id))
+            base_color.append([0.7, 0.3 + 0.5 * i / max(grid - 1, 1), 0.2])
+            metal.append(j / max(grid - 1, 1))
+            rough.append(np.clip(0.05 + 0.9 * i / max(grid - 1, 1), 0.05, 1.0))
+            emission.append([0, 0, 0])
+            mat_id += 1
+    materials = {
+        "base_color": base_color,
+        "metalness": metal,
+        "roughness": rough,
+        "emission": emission,
+    }
+    return _assemble(parts, materials)
 
 
 def kitchen(light_intensity: float = 8.0) -> Scene:

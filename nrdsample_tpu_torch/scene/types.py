@@ -11,6 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from nrdsample_tpu_torch.device import resolve
+
 
 def _to(obj, device):
     kw = {}
@@ -135,7 +137,9 @@ def _invert_rigid(m: torch.Tensor) -> torch.Tensor:
 
 def look_at(eye, target, up=(0.0, 0.0, 1.0), fov_y_deg: float = 60.0, aspect: float = 1.0,
             near_z: float = 0.01, device=None) -> Camera:
-    """Camera from eye/target (world z-up)."""
+    """Camera from eye/target (world z-up), on ``device`` (the CUDA card when
+    None)."""
+    device = resolve(device)
     eye = np.asarray(eye, np.float32)
     target = np.asarray(target, np.float32)
     up = np.asarray(up, np.float32)

@@ -186,7 +186,7 @@ def test_any_hit_matches_occluded_dense():
     want = np.asarray(jintersect.occluded_dense(jnp.asarray(o), jnp.asarray(d),
                                                 *(jnp.asarray(tris[k]) for k in ("p0", "e1", "e2")),
                                                 t_max=jnp.asarray(tm)))
-    ctx, _ = traversal.build_context(procedural.cornell_box())
+    ctx, _ = traversal.build_context(procedural.cornell_box(), device="cpu")
     blocked, t = traversal.any_hit_t(ctx, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tm))
     np.testing.assert_array_equal(blocked.numpy(), want)
     np.testing.assert_array_equal(traversal.any_hit(ctx, torch.from_numpy(o), torch.from_numpy(d),
@@ -219,7 +219,7 @@ def test_plain_probe_matches_xla_probe_tail():
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    ctx, scene = traversal.build_context(procedural.kitchen())
+    ctx, scene = traversal.build_context(procedural.kitchen(), device="cpu")
     tr = ctx.tris
     o, d = (torch.from_numpy(a) for a in _rays(500, 4, 3.0))
     before = (dense_cuda.LAUNCHES, emissive_probe.LAUNCHES)

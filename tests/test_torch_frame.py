@@ -27,7 +27,7 @@ from nrdsample_tpu.scene import procedural as jproc
 from nrdsample_tpu.scene.types import look_at as jlook_at
 from nrdsample_tpu_torch import config, convert
 from nrdsample_tpu_torch.config import Denoiser, NrdMode, OnScreen, RenderConfig, TracingMode
-from nrdsample_tpu_torch.ops import traversal
+from nrdsample_tpu_torch.ops import intersect, traversal
 from nrdsample_tpu_torch.pipeline import frame, records
 from nrdsample_tpu_torch.scene import procedural
 from nrdsample_tpu_torch.scene.types import look_at
@@ -66,11 +66,12 @@ def two_frames():
     js = JSettings(sun_elevation=jnp.float32(-30.0), disable_shadows=jnp.int32(1))
     jcfg = replay.cfg_from_render({}, res=RES)
     fn = jax.jit(lambda sc, c, st, h: jframe.render_frame(jctx, sc, c, jcfg, st, h))
-    ctx, scene = traversal.build_context(convert.scene_from_numpy(_np_leaves(jscene)))
-    cam = convert.camera_from_numpy(_np_leaves(jc))
-    settings = convert.settings_from_numpy(_np_leaves(js))
+    ctx, scene = traversal.build_context(convert.scene_from_numpy(_np_leaves(jscene), device="cpu"),
+                                         device="cpu")
+    cam = convert.camera_from_numpy(_np_leaves(jc), device="cpu")
+    settings = convert.settings_from_numpy(_np_leaves(js), device="cpu")
     cfg = RenderConfig(width=RES, height=RES)
-    jh, h = jframe.History.create(jcfg), frame.History.create(cfg)
+    jh, h = jframe.History.create(jcfg), frame.History.create(cfg, "cpu")
     pairs = []
     for _ in range(2):
         jout, jh = fn(jscene, jc, js, jh)
@@ -108,11 +109,11 @@ def test_cornellbox_golden_through_the_port():
     data = np.load(os.path.join(REPO, "Tests", "golden", "cornellbox-000.npz"))
     res = int(data["res"])
     settings, cam, render, animation = records.load_record_full(
-        os.path.join(REPO, "Tests", "cornellbox.json"), 0)
+        os.path.join(REPO, "Tests", "cornellbox.json"), 0, device="cpu")
     assert render == {} and animation is None
     cfg = RenderConfig(width=res, height=res)
-    ctx, scene = traversal.build_context(procedural.cornell_box())
-    out, _ = frame.render_frame(ctx, scene, cam, cfg, settings, frame.History.create(cfg),
+    ctx, scene = traversal.build_context(procedural.cornell_box(), device="cpu")
+    out, _ = frame.render_frame(ctx, scene, cam, cfg, settings, frame.History.create(cfg, "cpu"),
                                 reset_history=True)
     img = out["color"].numpy().reshape(res, res, 3)
     tiles = img.reshape(res // 8, 8, res // 8, 8, 3).mean(axis=(1, 3))
@@ -124,16 +125,16 @@ def test_cornellbox_golden_through_the_port():
 def test_cam_fov_and_blink_settings():
     """camFov replaces the camera's FoV; blink only touches forced-emission
     materials, which the Cornell box has none of."""
-    ctx, scene = traversal.build_context(procedural.cornell_box())
+    ctx, scene = traversal.build_context(procedural.cornell_box(), device="cpu")
     cfg = RenderConfig(width=16, height=16)
-    cam = look_at([0.0, -3.2, 1.0], [0.0, 0.0, 1.0], fov_y_deg=39.0)
-    base = config.make_settings(sun_elevation=-30.0, disable_shadows=1)
-    ref, _ = frame.render_frame(ctx, scene, cam, cfg, base, frame.History.create(cfg))
+    cam = look_at([0.0, -3.2, 1.0], [0.0, 0.0, 1.0], fov_y_deg=39.0, device="cpu")
+    base = config.make_settings("cpu", sun_elevation=-30.0, disable_shadows=1)
+    ref, _ = frame.render_frame(ctx, scene, cam, cfg, base, frame.History.create(cfg, "cpu"))
     same_fov = dataclasses.replace(base, cam_fov=torch.tensor(39.0), blink=torch.tensor(1, dtype=torch.int32))
-    out, _ = frame.render_frame(ctx, scene, cam, cfg, same_fov, frame.History.create(cfg))
+    out, _ = frame.render_frame(ctx, scene, cam, cfg, same_fov, frame.History.create(cfg, "cpu"))
     torch.testing.assert_close(out["color"], ref["color"], rtol=1e-5, atol=1e-5)
     wide = dataclasses.replace(base, cam_fov=torch.tensor(80.0))
-    out, _ = frame.render_frame(ctx, scene, cam, cfg, wide, frame.History.create(cfg))
+    out, _ = frame.render_frame(ctx, scene, cam, cfg, wide, frame.History.create(cfg, "cpu"))
     assert not torch.allclose(out["view_z"], ref["view_z"])
 
 
@@ -159,16 +160,33 @@ LATER_CONFIGS = {
 }
 
 
+#: branches of LATER_CONFIGS that the port has since gained
+PORTED_CONFIGS = {"reblur"}
+
+
 @pytest.mark.parametrize("name", sorted(LATER_CONFIGS))
 def test_later_config_branches_raise(name):
+    """A branch of a later slice raises NotImplementedError from
+    History.create and from render_frame. REBLUR is ported now: its 8x8
+    frame of the Cornell box is finite and its histories advance."""
     cfg = RenderConfig(width=8, height=8, **LATER_CONFIGS[name])
+    ctx, scene = traversal.build_context(procedural.cornell_box(), device="cpu")
+    cam = look_at([0, -3, 1], [0, 0, 1], device="cpu")
+    if name in PORTED_CONFIGS:
+        out, h = frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
+                                    frame.History.create(cfg, "cpu"))
+        assert bool(torch.isfinite(out["color"]).all()) and float(out["color"].mean()) > 0.0
+        assert h.reference is None and int(h.frame_index) == 1
+        # one frame accumulated (anti-lag may cut REBLUR's count below 1)
+        assert float(h.sigma.frames.min()) == float(h.sigma.frames.max()) == 1.0
+        assert 0.0 < float(h.reblur_diff.frames.min()) and float(h.reblur_diff.frames.max()) == 1.0
+        return
     with pytest.raises(NotImplementedError):
-        frame.History.create(cfg)
-    ctx, scene = traversal.build_context(procedural.cornell_box())
+        frame.History.create(cfg, "cpu")
     ok_cfg = RenderConfig(width=8, height=8)
     with pytest.raises(NotImplementedError):
-        frame.render_frame(ctx, scene, look_at([0, -3, 1], [0, 0, 1]), cfg, config.Settings(),
-                           frame.History.create(ok_cfg))
+        frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
+                           frame.History.create(ok_cfg, "cpu"))
 
 
 def _scene_variant(name):
@@ -196,16 +214,66 @@ def _scene_variant(name):
     raise KeyError(name)
 
 
+def _assert_hits_as_dense(ctx, scene):
+    """The context's closest hits equal brute force over the unpadded
+    scene's triangles: t bit for bit, hit/miss on every ray, and the
+    triangle itself (through ``ctx.order``) except on exact ties between
+    coincident or edge-sharing triangles."""
+    rs = np.random.RandomState(0)
+    o = torch.from_numpy(rs.uniform(-0.9, 0.9, (2000, 3)).astype(np.float32) + np.float32([0, 0, 1]))
+    d = torch.from_numpy(rs.randn(2000, 3).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True)
+    got = traversal.closest_hit(ctx, o, d)
+    n = len(ctx.order)
+    p0, e1, e2 = (getattr(scene.tris, k)[torch.from_numpy(np.argsort(ctx.order))] for k in ("p0", "e1", "e2"))
+    want = intersect.intersect_dense(o, d, p0, e1, e2)
+    assert scene.tris.count % 128 == 0 and scene.tris.count >= n
+    assert torch.equal(got["t"], want["t"]) and torch.equal(got["tri"] >= 0, want["tri"] >= 0)
+    hit = got["tri"] >= 0
+    mapped = torch.from_numpy(ctx.order.astype(np.int32))[got["tri"][hit].long()]
+    assert float((mapped != want["tri"][hit]).float().mean()) <= 0.05
+    assert int(hit.sum()) > 1000
+
+
 @pytest.mark.parametrize("name", ["textures", "alpha_test", "instance_scales", "transparent",
                                   "over_1024_tris", "over_512_emitters"])
 def test_later_scene_branches_raise(name):
+    """A scene feature of a later slice raises NotImplementedError from
+    build_context. Scenes over 1024 triangles are ported now: they take
+    cluster mode, and their hits are those of brute force."""
+    if name == "over_1024_tris":
+        ctx, scene = traversal.build_context(_scene_variant(name), device="cpu")
+        assert ctx.mode == "cluster" and ctx.clusters.count == 9
+        _assert_hits_as_dense(ctx, scene)
+        return
     with pytest.raises(NotImplementedError):
-        traversal.build_context(_scene_variant(name))
+        traversal.build_context(_scene_variant(name), device="cpu")
 
 
 def test_cluster_mode_raises():
-    with pytest.raises(NotImplementedError):
-        traversal.build_context(procedural.cornell_box(), mode="cluster")
+    """Cluster mode, once of a later slice, is ported now: the Cornell box
+    forced into it (36 triangles padded to one cluster) traces as dense
+    mode does."""
+    ctx, scene = traversal.build_context(procedural.cornell_box(), mode="cluster", device="cpu")
+    assert ctx.mode == "cluster" and ctx.clusters.count == 1 and scene.tris.count == 128
+    _assert_hits_as_dense(ctx, scene)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """device=None means CUDA: without a card it fails at once, naming CUDA,
+    instead of carrying on on the CPU."""
+    from nrdsample_tpu_torch.device import resolve
+
+    assert resolve("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve(None) == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: resolve(None), lambda: config.make_settings(),
+                 lambda: look_at([0, -3, 1], [0, 0, 1]),
+                 lambda: frame.History.create(RenderConfig(width=8, height=8)),
+                 lambda: traversal.build_context(procedural.cornell_box())):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_port_imports_no_jax():

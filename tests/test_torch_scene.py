@@ -51,7 +51,7 @@ def _assert_leaves_equal(got, want, path=""):
             np.testing.assert_array_equal(got[k], want[k], err_msg=f"{path}.{k}")
 
 
-@pytest.mark.parametrize("name", ["cornell_box", "kitchen"])
+@pytest.mark.parametrize("name", ["cornell_box", "kitchen", "shader_balls"])
 def test_procedural_scene_arrays_equal(name):
     want = _np_leaves(getattr(jproc, name)())
     got = _np_leaves(getattr(procedural, name)())
@@ -65,13 +65,13 @@ def test_cornell_furnace_equal():
 
 def test_look_at_equal():
     kw = dict(eye=[0.0, -1.6, 1.6], target=[0.0, 1.5, 1.2], fov_y_deg=65.0, aspect=16 / 9)
-    _assert_leaves_equal(_np_leaves(look_at(**kw)), _np_leaves(jlook_at(**kw)))
+    _assert_leaves_equal(_np_leaves(look_at(**kw, device="cpu")), _np_leaves(jlook_at(**kw)))
 
 
 @pytest.mark.parametrize("name", ["cornell_box", "kitchen"])
 def test_convert_scene_round_trip(name):
     want = _np_leaves(getattr(jproc, name)())
-    got = _np_leaves(convert.scene_from_numpy(want))
+    got = _np_leaves(convert.scene_from_numpy(want, device="cpu"))
     for key in ("textures", "tri_instance", "instance_scales"):
         assert got.pop(key) is None and want.pop(key) is None
     _assert_leaves_equal(got, want)
@@ -81,36 +81,40 @@ def test_convert_camera_settings_history_round_trip():
     cam = jlook_at([0.3, -3.0, 1.1], [0.0, 0.0, 1.0], fov_y_deg=39.0, aspect=1.5)
     cam = dataclasses.replace(cam, jitter=jnp.asarray([0.25, -0.125], jnp.float32),
                               aperture=jnp.float32(0.05))
-    _assert_leaves_equal(_np_leaves(convert.camera_from_numpy(_np_leaves(cam))), _np_leaves(cam))
+    _assert_leaves_equal(_np_leaves(convert.camera_from_numpy(_np_leaves(cam), device="cpu")), _np_leaves(cam))
     s = JSettings(sun_elevation=jnp.float32(-30.0), disable_shadows=jnp.int32(1),
                   blink=jnp.int32(1))
-    _assert_leaves_equal(_np_leaves(convert.settings_from_numpy(_np_leaves(s))), _np_leaves(s))
-    h = jframe.History.create(cfg_from_render({}, res=8))
-    h = dataclasses.replace(h, frame_index=jnp.int32(5))
-    want = {"frame_index": np.asarray(h.frame_index), "reference": _np_leaves(h.reference)}
-    got = _np_leaves(convert.history_from_numpy(want))
-    _assert_leaves_equal(got, want)
+    _assert_leaves_equal(_np_leaves(convert.settings_from_numpy(_np_leaves(s), device="cpu")), _np_leaves(s))
+    # the REFERENCE history, and REBLUR's two signal histories plus SIGMA's
+    for render in ({}, {"denoiser": 0}):
+        h = jframe.History.create(cfg_from_render(render, res=8))
+        h = dataclasses.replace(h, frame_index=jnp.int32(5))
+        want = {k: None if getattr(h, k) is None else _np_leaves(getattr(h, k))
+                for k in ("reference", "reblur_diff", "reblur_spec", "sigma")}
+        want["frame_index"] = np.asarray(h.frame_index)
+        got = _np_leaves(convert.history_from_numpy(want, device="cpu"))
+        _assert_leaves_equal(got, want)
 
 
 def test_convert_rejects_textures():
     leaves = _np_leaves(jproc.cornell_box())
     leaves["textures"] = {"texels": np.zeros(4, np.float32)}
     with pytest.raises(NotImplementedError):
-        convert.scene_from_numpy(leaves)
+        convert.scene_from_numpy(leaves, device="cpu")
 
 
 def test_record_load_matches_jax():
     path = os.path.join(TESTS_DIR, "cornellbox.json")
     for index in (0, 3, 12):
         js, jc, jr, ja = jrecords.load_record_full(path, index)
-        s, c, r, a = records.load_record_full(path, index)
+        s, c, r, a = records.load_record_full(path, index, device="cpu")
         assert r == jr and a == ja
         _assert_leaves_equal(_np_leaves(s), _np_leaves(js))
         _assert_leaves_equal(_np_leaves(c), _np_leaves(jc))
 
 
 def test_make_settings_dtypes():
-    s = make_settings(sun_elevation=35.0, disable_shadows=1)
+    s = make_settings("cpu", sun_elevation=35.0, disable_shadows=1)
     want = _np_leaves(JSettings(sun_elevation=jnp.float32(35.0), disable_shadows=jnp.int32(1)))
     _assert_leaves_equal(_np_leaves(s), want)
 
@@ -119,7 +123,7 @@ def _cams(aperture):
     cam = jlook_at([0.0, -1.6, 1.6], [0.0, 1.5, 1.2], fov_y_deg=65.0, aspect=16 / 9)
     cam = dataclasses.replace(cam, jitter=jnp.asarray([0.3, -0.2], jnp.float32),
                               aperture=jnp.float32(aperture), focal_distance=jnp.float32(2.5))
-    return cam, convert.camera_from_numpy(_np_leaves(cam))
+    return cam, convert.camera_from_numpy(_np_leaves(cam), device="cpu")
 
 
 @pytest.mark.parametrize("aperture", [0.0, 0.04])
@@ -137,7 +141,7 @@ def test_camera_rays_match(aperture):
 def test_screen_transforms_match():
     jc, tc = _cams(0.0)
     jc = dataclasses.replace(jc, view_to_world_prev=jlook_at([0.1, -1.5, 1.6], [0.0, 1.5, 1.2]).view_to_world)
-    tc = convert.camera_from_numpy(_np_leaves(jc))
+    tc = convert.camera_from_numpy(_np_leaves(jc), device="cpu")
     p = np.random.RandomState(3).uniform(-2, 2, (500, 3)).astype(np.float32) + [0, 2.5, 1]
     p = p.astype(np.float32)
     jp, tp = jnp.asarray(p), torch.from_numpy(p)

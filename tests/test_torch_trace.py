@@ -67,9 +67,10 @@ def _setup(name):
     jctx, jscene = jtraversal.build_context(scene_fn())
     jc = jlook_at(eye=eye, target=target, fov_y_deg=fov)
     js = jconfig.Settings(**skw)
-    ctx, scene = traversal.build_context(convert.scene_from_numpy(_np_leaves(jscene)))
-    return (jctx, jscene, jc, js), (ctx, scene, convert.camera_from_numpy(_np_leaves(jc)),
-                                    convert.settings_from_numpy(_np_leaves(js)))
+    ctx, scene = traversal.build_context(convert.scene_from_numpy(_np_leaves(jscene), device="cpu"),
+                                         device="cpu")
+    return (jctx, jscene, jc, js), (ctx, scene, convert.camera_from_numpy(_np_leaves(jc), device="cpu"),
+                                    convert.settings_from_numpy(_np_leaves(js), device="cpu"))
 
 
 def _t(a):
