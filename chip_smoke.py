@@ -5,9 +5,11 @@
 Builds the port's CUDA kernels from ``nrdsample_tpu_torch/csrc`` and renders
 three configurations through ``pipeline.frame.render_frame``: first
 shaderballs512 (cluster traversal through the packet kernel, REBLUR + SIGMA
-through the bilinear gather kernel), then, after holding each kernel against
-its plain PyTorch version on the card at the main paths' shapes, cornell256
-and the kitchen at 1920x1080 (dense traversal, REFERENCE). It
+through the bilinear gather kernel), then, after holding each of the seven
+kernels against its plain PyTorch version on the card at the main paths'
+shapes, cornell256 and kitchen1080 (dense traversal, RELAX + SIGMA, SH, TAA,
+SHARC and history confidence, through the dense hit, emissive probe,
+bilinear gather, RELAX taccum, RELAX à-trous and TAA resolve kernels). It
 checks that each main path went through its kernels, compares card frames
 with CPU frames and the cornellbox-000 golden, and prints one JSON line of
 kernels plus a final ``{"ok": true, "device": ...}`` line. Any failed phase
@@ -47,6 +49,25 @@ F32_UNFUSED_OPS_PER_S = 33.5e12
 # v, t (5 each, plus 1 scaling by 1/det for u, v and t), the |det| test, the
 # divide, tvec (3), the 4 compares and 1 add of the hit test, t < best
 MT_OPS = 9 + 9 + 4 * 5 + 3 + 1 + 1 + 3 + 5 + 1
+# float32 operations per pixel of the denoiser kernels, counted from their
+# sources (exp, pow, sqrt and a divide count as one; index arithmetic and the
+# taccum kernel's recomputed 1-pixel ring do not count):
+# - relax_taccum: anti-firefly 9 luminances (5 each), 16 min/max, clamp 2,
+#   divide, scale 3 = 67; the gather's position 6 and 10 channels x 15 = 156;
+#   disocclusion, on-screen and confidence 20; accumulation (min, divide,
+#   luminance, square, 5 blends of 4) 28; the 3x3 variance 27 + 7 = 34
+TACCUM_OPS = 67 + 156 + 20 + 28 + 34
+# - relax_atrous: per tap luminance 5, depth weight 6 (sub, abs, 2 mul,
+#   divide, exp), normal weight 8 (dot 5, clamp 2, pow), luminance weight 4,
+#   weight 4, sums 10 = 37, times 9 taps; the centre 11, the end 6
+ATROUS_OPS = 9 * 37 + 11 + 6
+# - taa_resolve: 3x3 moments 9 x 3 x 3 = 81 (25 x 9 = 225 on wide pixels,
+#   counted per pixel of the run's mask), mean and sigma 18, clamp 18,
+#   [0, 1] clamps 12, two CIELAB conversions 64, distance and JND 12, mix 4,
+#   on-screen 8, reset 1, output 9
+TAA_OPS = 81 + 18 + 18 + 12 + 64 + 12 + 4 + 8 + 1 + 9
+TAA_WIDE_EXTRA_OPS = 225 - 81
+KITCHEN_FRAMES = 4
 
 
 def fail(msg: str):
@@ -204,6 +225,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
     from nrdsample_tpu_torch.config import Denoiser, RenderConfig, make_settings
+    from nrdsample_tpu_torch.denoise import atrous_cuda, relax, taa, taa_cuda, taccum_cuda
     from nrdsample_tpu_torch.mathlib import color, filtering
     from nrdsample_tpu_torch.ops import (_kernels, cluster, dense_cuda, emissive_probe, intersect,
                                          packet, reproject, traversal)
@@ -212,7 +234,7 @@ def main() -> int:
     from nrdsample_tpu_torch.scene import camera, procedural
     from nrdsample_tpu_torch.scene.types import look_at
 
-    counters = (dense_cuda, emissive_probe, packet, reproject)
+    counters = (dense_cuda, emissive_probe, packet, reproject, taccum_cuda, atrous_cuda, taa_cuda)
 
     def reset_counts():
         for m in counters:
@@ -427,6 +449,125 @@ def main() -> int:
                 fail(f"bilinear kernel disagrees with its plain version (C={c}, {disp})")
             bil_res[(c, disp)] = (err, ms, plain_ms, lib_ms, bnd)
 
+    # RELAX taccum, RELAX à-trous and TAA resolve at kitchen1080's (1080, 1920)
+    # planes: smooth depth with 0.5% history noise, normals near +z, motion
+    # below 3 px, of 20 px and off screen, a confidence plane and a reset
+    kh, kw = 1080, 1920
+    n_px = kh * kw
+    g = torch.Generator(device="cpu").manual_seed(5)
+
+    def rand(*shape, hi=1.0):
+        return (torch.rand(shape, generator=g) * hi).to(dev)
+
+    yy, xx = torch.meshgrid(torch.arange(kh, device=dev, dtype=torch.float32),
+                            torch.arange(kw, device=dev, dtype=torch.float32), indexing="ij")
+    vz = 3.0 + 0.2 * torch.sin(xx / 300.0) + 0.2 * torch.cos(yy / 200.0)
+    nrm = torch.randn((kh, kw, 3), generator=g) * 0.3 + torch.tensor([0.0, 0.0, 1.0])
+    nrm = (nrm / nrm.norm(dim=-1, keepdim=True)).to(dev)
+    rhist = relax.RelaxHistory(
+        illum=rand(kh, kw, 3, hi=2.0), moments=rand(kh, kw, 2),
+        view_z=vz * (1.0 + (torch.randn((kh, kw), generator=g) * 0.005).to(dev)),
+        normal=nrm, frames=rand(kh, kw, hi=20.0))
+    illum = rand(kh, kw, 3, hi=3.0)
+    conf = rand(kh, kw)
+
+    def motion(scale: float, off: float = 0.0):
+        """(H, W, 3): xy uniform in +-scale px (pushed off by +-off), z in
+        +-0.01."""
+        m = torch.rand((kh, kw, 3), generator=g) * 2.0 - 1.0
+        m[..., :2] = m[..., :2] * scale + torch.sign(m[..., :2]) * off
+        m[..., 2] *= 0.01
+        return m.to(dev)
+
+    rset = relax.RelaxSettings(max_accumulated_frames=torch.tensor(31.0, device=dev))
+    taccum_res = {}
+    # the reset case passes its flag as a 0-d device tensor: a host bool would
+    # be copied to the card inside the graph capture
+    for case, (mv_c, conf_c, reset_c) in {
+        "motion < 3 px": (motion(2.5), None, False),
+        "motion 20 px": (motion(20.0), None, False),
+        "off-screen": (motion(40.0, 2000.0), None, False),
+        "confidence": (motion(2.5), conf, False),
+        "reset": (motion(2.5), conf, torch.tensor(True, device=dev)),
+    }.items():
+        def kernel():
+            return taccum_cuda.taccum_variance_cuda(
+                rhist.illum, rhist.moments, rhist.view_z, rhist.normal, rhist.frames, illum, vz,
+                nrm, mv_c, rset.max_accumulated_frames, rset.disocclusion_threshold, True,
+                reset=reset_c, confidence=conf_c)
+
+        def plain():
+            return relax.taccum_plain(rhist, illum, vz, nrm, mv_c, rset, reset_c, conf_c)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in zip(got, ref)]
+        err = max(e for e, _ in errs)
+        accumulated = int((ref[2] > 1.0).sum())
+        ms = graph_ms(kernel)
+        plain_ms = median_ms(plain, reps=5)
+        n_planes = 10 + 10 + (1 if conf_c is not None else 0) + 7
+        bnd = bound_ms(n_px * n_planes * 4, n_px * TACCUM_OPS)
+        print(f"[relax_taccum] (1080, 1920) {case}: accumulated pixels {accumulated} max|err| "
+              f"{err:.3g} | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) ({card})")
+        keeps_history = case not in ("off-screen", "reset")
+        if not all(ok for _, ok in errs) or keeps_history != (accumulated > 0):
+            fail(f"RELAX taccum kernel disagrees with its plain version ({case})")
+        taccum_res[case] = (err, ms, plain_ms, bnd)
+
+    atrous_res = {}
+    avar = rand(kh, kw, hi=0.5)
+    for step in (1, 2, 4, 8, 16):
+        def kernel():
+            return atrous_cuda.atrous_iteration_cuda(illum, avar, vz, nrm, step, rset.phi_luminance,
+                                                     rset.phi_normal, rset.phi_depth)
+
+        def plain():
+            return relax.atrous_iteration(illum, avar, vz, nrm, step, rset)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        errs = [max_err(a, b) for a, b in zip(got, ref)]
+        err = max(e for e, _ in errs)
+        ms = graph_ms(kernel)
+        plain_ms = median_ms(plain, reps=5)
+        bnd = bound_ms(n_px * (8 + 4) * 4, n_px * ATROUS_OPS)
+        print(f"[relax_atrous] (1080, 1920) step {step}: max|err| {err:.3g} | kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({card})")
+        if not all(ok for _, ok in errs):
+            fail(f"RELAX à-trous kernel disagrees with its plain version (step {step})")
+        atrous_res[step] = (err, ms, plain_ms, bnd)
+
+    taa_res = {}
+    cur, prev = rand(kh, kw, 3, hi=1.5), rand(kh, kw, 3, hi=1.5)
+    mv_d = (rand(kh, kw, 2) * 2.0 - 1.0) * 3.0
+    mv_d[:64, :, 0] += 2000.0   # a band of pixels whose history lies off screen
+    wide = (rand(kh, kw) > 0.7).to(torch.float32)
+    reset_mix = (rand(kh, kw) > 0.9).to(torch.float32)
+    for case, wm in (("wide mask", wide), ("no wide mask", None)):
+        def kernel():
+            return taa_cuda.taa_resolve_cuda(cur, prev, mv_d, wm, reset_mix, 2.0, 0.1)
+
+        def plain():
+            return taa.resolve_tail(cur, prev, mv_d, wm, reset_mix, 2.0, 0.1)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ok = max_err(got, ref)
+        ms = graph_ms(kernel)
+        plain_ms = median_ms(plain, reps=5)
+        n_wide = int((wm > 0.5).sum()) if wm is not None else 0
+        bnd = bound_ms(n_px * ((10 if wm is not None else 9) + 3) * 4,
+                       n_px * TAA_OPS + n_wide * TAA_WIDE_EXTRA_OPS)
+        print(f"[taa_resolve] (1080, 1920) {case} ({n_wide} wide pixels): max|err| {err:.3g} | "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) "
+              f"({card})")
+        if not ok:
+            fail(f"TAA resolve kernel disagrees with its plain version ({case})")
+        taa_res[case] = (err, ms, plain_ms, bnd)
+    del rhist, illum, conf, avar, cur, prev, mv_d, wide, reset_mix, got, ref, vz, nrm, xx, yy
+
     # ---- 4. main path, bench config 1: cornell256 ----
     ctx, scene, cam, cfg, settings = bench_configs.setup("cornell256", dev)
     hist = frame.History.create(cfg, dev)
@@ -446,35 +587,46 @@ def main() -> int:
         fail("cornell256 image is not finite and positive")
     del out, img, hist
 
-    # ---- 5. dense main path at real size: the kitchen at 1920x1080 ----
-    ctx, scene, cam, cfg, settings = bench_configs.setup("kitchen1080-REFERENCE", dev)
+    # ---- 5. dense main path at real size: kitchen1080 (RELAX + SIGMA, SH,
+    # TAA, SHARC, history confidence) ----
+    ctx, scene, cam, cfg, settings = bench_configs.setup("kitchen1080", dev)
     hist = frame.History.create(cfg, dev)
+    kitchen_counters = {"dense_hit": dense_cuda, "emissive_probe": emissive_probe,
+                        "bilinear_sample": reproject, "relax_taccum": taccum_cuda,
+                        "relax_atrous": atrous_cuda, "taa_resolve": taa_cuda}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    n_frames = 4
     per_frame = []
     reset_counts()
     t0 = time.perf_counter()
-    for _ in range(n_frames):
-        before = (dense_cuda.LAUNCHES, emissive_probe.LAUNCHES)
+    for _ in range(KITCHEN_FRAMES):
+        before = {k: m.LAUNCHES for k, m in kitchen_counters.items()}
         out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
-        per_frame.append((dense_cuda.LAUNCHES - before[0], emissive_probe.LAUNCHES - before[1]))
+        per_frame.append({k: m.LAUNCHES - before[k] for k, m in kitchen_counters.items()})
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n_frames
-    launches.update(dense_hit=dense_cuda.LAUNCHES, emissive_probe=emissive_probe.LAUNCHES)
+    ms = (time.perf_counter() - t0) * 1e3 / KITCHEN_FRAMES
+    for k, m in kitchen_counters.items():
+        launches[k] = launches.get(k, 0) + m.LAUNCHES
     peak = torch.cuda.max_memory_allocated(dev)
-    img = out["color"]
-    lum = float(color.luminance(img).mean())
+    lums = {k: float(color.luminance(out[k]).mean()) for k in ("color", "final")}
     rays_per_px = bench_configs.rays_per_pixel(cfg)
-    print(f"[kitchen1080] {ms:.3f} ms/frame over {n_frames} frames (first included), "
-          f"{rays_per_px * cfg.n_pixels / (ms * 1e-3):.4g} rays/s, peak memory {peak} B, "
-          f"mean luminance {lum:.6g}, launches/frame {per_frame[0]} ({card})")
-    if tuple(img.shape) != (cfg.n_pixels, 3) or not bool(torch.isfinite(img).all()) or not lum > 0.0:
-        fail("kitchen1080 image is not finite with a positive mean luminance")
-    if int(hist.reference.frames) != n_frames:
-        fail(f"History.reference.frames is {int(hist.reference.frames)}, expected {n_frames}")
-    if not all(dh > 0 and pr > 0 for dh, pr in per_frame):
-        fail(f"a frame did not launch both kernels: per-frame launches {per_frame}")
+    frames_max = float(hist.relax_diff.frames.max())
+    n_keys = int((hist.sharc.keys != 0).sum())
+    print(f"[kitchen1080] {ms:.3f} ms/frame over {KITCHEN_FRAMES} frames (first included), "
+          f"{rays_per_px * cfg.n_pixels / (ms * 1e-3):.4g} rays/s ({rays_per_px:.4f} rays/px), "
+          f"peak memory {peak} B, mean luminance composed {lums['color']:.6g} TAA "
+          f"{lums['final']:.6g}, launches/frame {per_frame[-1]}, RELAX frames max "
+          f"{frames_max:.3f}, TAA valid {int(hist.taa.valid)}, SHARC keys {n_keys} of "
+          f"{hist.sharc.capacity} ({card})")
+    for k in ("color", "final"):
+        img = out[k]
+        if (tuple(img.shape) != (cfg.n_pixels, 3) or not bool(torch.isfinite(img).all())
+                or not lums[k] > 0.0):
+            fail(f"kitchen1080 {k} image is not finite with a positive mean luminance")
+    if not all(n > 0 for f in per_frame for n in f.values()):
+        fail(f"a frame did not launch all six kernels: per-frame launches {per_frame}")
+    if not frames_max > 1.0 or int(hist.taa.valid) != 1 or n_keys == 0:
+        fail("the RELAX, TAA or SHARC history did not advance")
     del out, img, hist
 
     # ---- 6. card against CPU, end to end; the cornellbox-000 golden ----
@@ -514,6 +666,25 @@ def main() -> int:
     if frac > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL:
         fail("the card's REBLUR frame disagrees with the CPU frame")
 
+    outs = {}
+    for where in ("cuda", "cpu"):
+        ctx, scene, cam, cfg, settings = bench_configs.setup("kitchen1080", where, width=80,
+                                                             height=48, sharc_capacity=1 << 16)
+        hist = frame.History.create(cfg, where)
+        for _ in range(3):
+            out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        outs[where] = out
+    worst = []
+    for plane in ("color", "final", "diff_radiance", "spec_radiance", "shadow", "view_z", "normal"):
+        frac, rel = frame_mismatch(outs["cpu"][plane], outs["cuda"][plane])
+        worst.append((frac, rel, plane))
+    frac, _, plane = max(worst)
+    rel = max(r for _, r, p in worst if p in ("color", "final"))
+    print(f"[card vs cpu] kitchen RELAX + SH + TAA + SHARC + confidence 80x48, 3 frames: worst "
+          f"outlier share {frac:.6f} ({plane}), color and TAA mean gap {rel:.3g} (rel)")
+    if frac > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL:
+        fail("the card's kitchen frame disagrees with the CPU frame")
+
     golden = np.load(os.path.join(REPO, "Tests", "golden", "cornellbox-000.npz"))
     res = int(golden["res"])
     settings, cam, render, _ = records.load_record_full(
@@ -543,6 +714,9 @@ def main() -> int:
     dense = results[("dense", "kitchen", "per-ray")]
     prim = packet_res["primary"]
     bil = bil_res[(9, "3")]
+    tac = taccum_res["confidence"]
+    atr = [atrous_res[st] for st in sorted(atrous_res)]
+    taa_w = taa_res["wide mask"]
     kernels = [
         {"name": "dense_hit", "route": "cuda", "source": "nrdsample_tpu_torch/csrc/dense_hit.cu",
          "replaces": "nrdsample_tpu/ops/dense_pallas.py:33", "launches": launches["dense_hit"],
@@ -566,6 +740,23 @@ def main() -> int:
          "max_abs_err": max(v[0] for v in bil_res.values()),
          "ms": bil[1], "plain_ms": bil[2], "bound_ms": bil[4][0], "bound_by": bil[4][1],
          "library_ms": bil[3]},
+        {"name": "relax_taccum", "route": "cuda", "source": "nrdsample_tpu_torch/csrc/relax_taccum.cu",
+         "replaces": "nrdsample_tpu/denoise/taccum_pallas.py:51",
+         "launches": launches["relax_taccum"],
+         "max_abs_err": max(v[0] for v in taccum_res.values()),
+         "ms": tac[1], "plain_ms": tac[2], "bound_ms": tac[3][0], "bound_by": tac[3][1],
+         "library_ms": None},
+        # ms and plain_ms: the mean over the five steps of one frame's chain
+        {"name": "relax_atrous", "route": "cuda", "source": "nrdsample_tpu_torch/csrc/relax_atrous.cu",
+         "replaces": "nrdsample_tpu/denoise/atrous_pallas.py:30",
+         "launches": launches["relax_atrous"], "max_abs_err": max(v[0] for v in atr),
+         "ms": statistics.mean(v[1] for v in atr), "plain_ms": statistics.mean(v[2] for v in atr),
+         "bound_ms": atr[0][3][0], "bound_by": atr[0][3][1], "library_ms": None},
+        {"name": "taa_resolve", "route": "cuda", "source": "nrdsample_tpu_torch/csrc/taa_resolve.cu",
+         "replaces": "nrdsample_tpu/denoise/taa_pallas.py:57", "launches": launches["taa_resolve"],
+         "max_abs_err": max(v[0] for v in taa_res.values()),
+         "ms": taa_w[1], "plain_ms": taa_w[2], "bound_ms": taa_w[3][0], "bound_by": taa_w[3][1],
+         "library_ms": None},
     ]
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))

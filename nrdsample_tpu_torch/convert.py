@@ -15,10 +15,14 @@ import numpy as np
 import torch
 
 from nrdsample_tpu_torch.config import Settings
+from nrdsample_tpu_torch.denoise.confidence import ConfidenceHistory
 from nrdsample_tpu_torch.denoise.reblur import ReblurHistory
 from nrdsample_tpu_torch.denoise.reference import ReferenceHistory
+from nrdsample_tpu_torch.denoise.relax import RelaxHistory
 from nrdsample_tpu_torch.denoise.sigma import SigmaHistory
+from nrdsample_tpu_torch.denoise.taa import TaaHistory
 from nrdsample_tpu_torch.device import resolve
+from nrdsample_tpu_torch.ops.sharc import SharcState
 from nrdsample_tpu_torch.pipeline.frame import History
 from nrdsample_tpu_torch.scene.types import Camera, Materials, Scene, TriangleSoA
 
@@ -67,16 +71,26 @@ def settings_from_numpy(d: dict, device=None) -> Settings:
     return Settings(**{k: _t(v, "cpu") for k, v in d.items()}).to(resolve(device))
 
 
-_SLOTS = {"reference": ReferenceHistory, "reblur_diff": ReblurHistory,
-          "reblur_spec": ReblurHistory, "sigma": SigmaHistory}
+_SLOTS = {"reference": ReferenceHistory, "relax_diff": RelaxHistory, "relax_spec": RelaxHistory,
+          "reblur_diff": ReblurHistory, "reblur_spec": ReblurHistory, "sigma": SigmaHistory,
+          "taa": TaaHistory, "sharc": SharcState, "confidence": ConfidenceHistory}
 
 
 def history_from_numpy(d: dict, device=None) -> History:
-    """d: {"frame_index": 0-d array} plus, for each denoiser slot that is
-    set, {slot: {leaf: array}}: "reference" (accum, frames), "reblur_diff"
-    and "reblur_spec" (illum, fast_illum, hitdist, view_z, normal, frames),
-    "sigma" (shadow, frames, view_z)."""
+    """d: {"frame_index": 0-d array} plus, for each slot that is set, {slot:
+    {leaf: array}}: "reference" (accum, frames), "relax_diff" and
+    "relax_spec" (illum, moments, view_z, normal, frames), "reblur_diff" and
+    "reblur_spec" (illum, fast_illum, hitdist, view_z, normal, frames),
+    "sigma" (shadow, frames, view_z), "taa" (color, valid), "sharc" (keys
+    uint32, accum, resolved, last_seen) and "confidence" (probe_lum, view_z).
+    SHARC's uint32 keys become the port's int64 keys of the same value."""
     device = resolve(device)
-    slots = {k: cls(**_fields(cls, d[k], device)) for k, cls in _SLOTS.items()
-             if d.get(k) is not None}
+    slots = {}
+    for k, cls in _SLOTS.items():
+        if d.get(k) is None:
+            continue
+        leaves = dict(d[k])
+        if cls is SharcState:
+            leaves["keys"] = np.asarray(leaves["keys"], np.uint32).astype(np.int64)
+        slots[k] = cls(**_fields(cls, leaves, device))
     return History(frame_index=_t(d["frame_index"], device), **slots)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from nrdsample_tpu_torch.mathlib import color, filtering
+from nrdsample_tpu_torch.mathlib import color, filtering, geometry as geo
 from nrdsample_tpu_torch.ops import reproject as repr_mod
 
 
@@ -88,7 +88,7 @@ def disocclusion_weight(view_z, mv_z, prev_view_z_reproj, normal=None, prev_norm
     rel = torch.abs(prev_view_z_reproj - expected) / torch.clamp_min(torch.abs(view_z), 1e-3)
     ok = (rel < threshold).to(view_z.dtype)
     if normal is not None and prev_normal_reproj is not None:
-        ndot = torch.sum(normal * prev_normal_reproj, dim=-1)
+        ndot = geo.dot3(normal, prev_normal_reproj)
         ok = ok * (ndot > 0.5).to(view_z.dtype)
     return ok
 

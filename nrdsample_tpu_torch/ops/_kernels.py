@@ -41,6 +41,17 @@ SIGNATURES = {
     "nrd_packet_hit": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P],
     # img, h, w, c, pos, n, out, stream
     "nrd_bilinear_sample": [_P, _I32, _I32, _I32, _P, _I64, _P, _P],
+    # hist illum, moments, view_z, normal, frames; illum, view_z, normal, mv,
+    # confidence (nullable), max_frames (device scalar), h, w, threshold,
+    # anti_firefly; out illum, moments, frames, variance; stream
+    "nrd_relax_taccum": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _F32, _I32,
+                         _P, _P, _P, _P, _P],
+    # illum, variance, view_z, normal, h, w, step, phi_l, phi_n, phi_d; out
+    # illum, variance; stream
+    "nrd_relax_atrous": [_P, _P, _P, _P, _I32, _I32, _I32, _F32, _F32, _F32, _P, _P, _P],
+    # cur, prev, mv_d, wide (nullable), reset_mix, h, w, sigma_scale, base_mix,
+    # out, stream
+    "nrd_taa_resolve": [_P, _P, _P, _P, _P, _I32, _I32, _F32, _F32, _P, _P],
 }
 
 _lib = None
@@ -118,6 +129,13 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero cudaGetLastError() code returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if any input needs a gradient: the kernels have no backward
+    yet, and a result that silently drops the gradient would be wrong."""
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward: an input requires grad")
 
 
 def check_tensor(name: str, x, dtype, shape, device) -> None:

@@ -3,11 +3,14 @@
 ``image_frame`` (the denoisers, then composition), threading an explicit
 ``History``. Eager PyTorch: each call runs on the device of its tensors.
 
-Two denoiser paths are ported: REFERENCE accumulation, and REBLUR with SIGMA
-for the sun shadow. The image work runs as ``image_frame_begin`` (hit-distance
-reconstruction, SIGMA, REBLUR temporal accumulation) then
-``image_frame_finish`` (REBLUR blur and stabilization, composition, history
-assembly), with every history gather inline.
+Three denoiser paths are ported: REFERENCE accumulation, and REBLUR or RELAX
+with SIGMA for the sun shadow; with them the SHARC radiance cache and its
+history-confidence plane, the SH resolve and TAA. The trace runs the SHARC
+update pass before the opaque trace. The image work runs as
+``image_frame_begin`` (history confidence, hit-distance reconstruction,
+SIGMA, RELAX, REBLUR temporal accumulation) then ``image_frame_finish``
+(REBLUR blur and stabilization, SH resolve and composition, REFERENCE, TAA,
+history assembly), with every history gather inline.
 """
 
 from __future__ import annotations
@@ -17,12 +20,14 @@ from typing import Any
 
 import torch
 
-from nrdsample_tpu_torch.config import Denoiser, RenderConfig, Settings, TracingMode
-from nrdsample_tpu_torch.denoise import checkerboard, common, composition, reblur, reference, sigma
+from nrdsample_tpu_torch import config as cfgmod
+from nrdsample_tpu_torch.config import Denoiser, NrdMode, RenderConfig, Settings, TracingMode
+from nrdsample_tpu_torch.denoise import (checkerboard, common, composition, confidence, reblur,
+                                         reference, relax, sh, sigma, taa)
 from nrdsample_tpu_torch.device import resolve
 from nrdsample_tpu_torch.mathlib import geometry as geo
-from nrdsample_tpu_torch.ops import traversal
-from nrdsample_tpu_torch.render import trace_opaque
+from nrdsample_tpu_torch.ops import sharc, traversal
+from nrdsample_tpu_torch.render import sharc_update, trace_opaque
 from nrdsample_tpu_torch.scene import camera as cam_mod
 from nrdsample_tpu_torch.scene.types import Camera, Scene
 
@@ -30,14 +35,19 @@ from nrdsample_tpu_torch.scene.types import Camera, Scene
 @dataclasses.dataclass
 class History:
     """Cross-frame state: the frame index and the slots of the configured
-    denoiser (unused slots are None; the other denoisers' slots arrive with
-    their slices)."""
+    denoiser, radiance cache and TAA (unused slots are None; the L1 cache and
+    NEURAL slots arrive with their slices)."""
 
     frame_index: torch.Tensor   # () int32
     reference: Any = None       # reference.ReferenceHistory
+    relax_diff: Any = None      # relax.RelaxHistory
+    relax_spec: Any = None
     reblur_diff: Any = None     # reblur.ReblurHistory
     reblur_spec: Any = None
     sigma: Any = None           # sigma.SigmaHistory
+    taa: Any = None             # taa.TaaHistory
+    sharc: Any = None           # sharc.SharcState (the L2 radiance cache)
+    confidence: Any = None      # confidence.ConfidenceHistory (probe luminance)
 
     @staticmethod
     def create(cfg: RenderConfig, device=None) -> "History":
@@ -47,24 +57,42 @@ class History:
         device = resolve(device)
         h, w, dt = cfg.height, cfg.width, cfg.dtype
         kw: dict[str, Any] = {"frame_index": torch.tensor(0, dtype=torch.int32, device=device)}
+        if cfg.use_sharc:
+            kw["sharc"] = sharc.SharcState.create(cfg.sharc_capacity, dt, device)
+            if cfg.use_confidence:
+                ds = cfg.sharc_downscale
+                kw["confidence"] = confidence.ConfidenceHistory.create(
+                    max(h // ds, 1), max(w // ds, 1), dt, device)
         if cfg.denoiser == Denoiser.REFERENCE:
             kw["reference"] = reference.ReferenceHistory.create(cfg.n_pixels, dt, device)
+        elif cfg.denoiser == Denoiser.RELAX:
+            kw["relax_diff"] = relax.RelaxHistory.create(h, w, dt, device)
+            kw["relax_spec"] = relax.RelaxHistory.create(h, w, dt, device)
+            kw["sigma"] = sigma.SigmaHistory.create(h, w, dt, device)
         elif cfg.denoiser == Denoiser.REBLUR:
             kw["reblur_diff"] = reblur.ReblurHistory.create(h, w, dt, device)
             kw["reblur_spec"] = reblur.ReblurHistory.create(h, w, dt, device)
             kw["sigma"] = sigma.SigmaHistory.create(h, w, dt, device)
+        if cfg.use_taa:
+            kw["taa"] = taa.TaaHistory.create(h, w, dt, device)
         return History(**kw)
 
 
 def trace_frame(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                 cfg: RenderConfig, settings: Settings, history: History,
                 pixel_idx=None):
-    """Phase 1 — the opaque trace. Returns (gb, aux): per-pixel planes and
-    the pixel-independent outputs (none in the ported paths)."""
-    gb = trace_opaque.trace_opaque(ctx, scene, cam, cfg, settings, history.frame_index,
-                                   pixel_idx)
+    """Phase 1 — the SHARC update pass, then the opaque trace. Returns
+    (gb, aux): per-pixel planes and the pixel-independent outputs
+    {"sharc": the updated cache, "probes": the probe planes}."""
+    frame = history.frame_index
+    sharc_state, probes = history.sharc, None
+    if cfg.use_sharc and sharc_state is not None:
+        sharc_state, probes = sharc_update.sharc_update_pass(ctx, scene, cam, cfg, settings, frame,
+                                                             sharc_state)
+    gb = trace_opaque.trace_opaque(ctx, scene, cam, cfg, settings, frame, pixel_idx,
+                                   sharc_state if cfg.use_sharc else None)
     gb.pop("shadow_ray")
-    return gb, {}
+    return gb, {"sharc": sharc_state, "probes": probes}
 
 
 def _reblur_spec_mv(cfg: RenderConfig, cam: Camera, gb: dict, img):
@@ -89,11 +117,29 @@ def _reblur_settings(settings: Settings) -> reblur.ReblurSettings:
                                  max_fast_accumulated_frames=torch.clamp_min(max_acc / 5.0, 1.0))
 
 
+def _confidence_plane(cfg: RenderConfig, settings: Settings, history: History, probes: dict):
+    """(H, W) history-confidence plane from the probe gradient, and the new
+    confidence history: gradient -> à-trous blur -> confidence at probe
+    resolution, spread over the pixels of each probe (nearest, the
+    remainder rows and columns taking the edge probe)."""
+    grad, new_hist = confidence.gradient_from_probes(history.confidence, probes)
+    grad = confidence.atrous_blur(grad, probes["view_z"], probes["normal"])
+    conf_lo = confidence.gradient_to_confidence(grad, history.frame_index,
+                                                relax_square=cfg.denoiser == Denoiser.RELAX)
+    conf_lo = conf_lo * settings.prev_frame_confidence
+    hs, ws = conf_lo.shape
+    ds, dev = cfg.sharc_downscale, conf_lo.device
+    rows = torch.clamp_max(torch.arange(cfg.height, device=dev) // ds, hs - 1)
+    cols = torch.clamp_max(torch.arange(cfg.width, device=dev) // ds, ws - 1)
+    return conf_lo[rows][:, cols], new_hist
+
+
 def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
                       history: History, gb: dict, aux: dict, reset_history=False) -> dict:
-    """Phase 2a — hit-distance reconstruction, SIGMA, and REBLUR's temporal
-    accumulation. Returns the ``mid`` dict for ``image_frame_finish``;
-    mid["gb_updates"] holds the G-buffer planes changed here."""
+    """Phase 2a — history confidence, hit-distance reconstruction, SIGMA,
+    RELAX, and REBLUR's temporal accumulation. Returns the ``mid`` dict for
+    ``image_frame_finish``; mid["gb_updates"] holds the G-buffer planes
+    changed here."""
     frame = history.frame_index
     n_local = gb["view_z"].shape[0]
     w = cfg.width
@@ -107,10 +153,18 @@ def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
 
     diff, spec, shadow = gb["diff_radiance"], gb["spec_radiance"], gb["shadow"]
 
+    # the history-confidence plane (gPrevFrameConfidence) from the SHARC probes
+    conf_img, new_conf = None, history.confidence
+    probes = aux.get("probes")
+    if (cfg.use_sharc and cfg.use_confidence and history.confidence is not None
+            and probes is not None and n_local == cfg.n_pixels):
+        conf_img, new_conf = _confidence_plane(cfg, settings, history, probes)
+
     # AREA_3X3 hit-distance reconstruction: probabilistic lobe selection
     # leaves the unsampled lobe's hit distance at 0
     gb_updates: dict = {}
-    if cfg.tracing_mode == TracingMode.FULL_PROBABILISTIC and cfg.denoiser == Denoiser.REBLUR:
+    if (cfg.tracing_mode == TracingMode.FULL_PROBABILISTIC
+            and cfg.denoiser in (Denoiser.REBLUR, Denoiser.RELAX)):
         gb_updates = {
             k: flat(checkerboard.hitdist_reconstruct_3x3(img(gb[k])))
             for k in ("diff_hitdist", "spec_hitdist")
@@ -118,6 +172,8 @@ def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
         gb = dict(gb, **gb_updates)
 
     new_h: dict[str, Any] = {"frame_index": frame + 1}
+    if new_conf is not None:
+        new_h["confidence"] = new_conf
     if history.sigma is not None:
         tan_sun = torch.tan(torch.deg2rad(settings.sun_angular_diameter * 0.5))
         unproj = cam_mod.unproject_scale(cam, cfg.height)
@@ -125,6 +181,17 @@ def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
             history.sigma, img(shadow), img(gb["shadow_hit_dist"]), img(gb["view_z"]),
             img(gb["mv"]), tan_sun, unproj, frame, reset=reset_history)
         shadow = flat(shadow_img)
+
+    if cfg.denoiser == Denoiser.RELAX:
+        s = relax.RelaxSettings(max_accumulated_frames=_max_acc(settings))
+        outs = {}
+        for sig, hist_sig, radiance in (("relax_diff", history.relax_diff, diff),
+                                        ("relax_spec", history.relax_spec, spec)):
+            out_sig, new_h[sig] = relax.denoise(
+                hist_sig, img(radiance), img(gb["view_z"]), img(gb["normal"]), img(gb["mv"]), s,
+                reset=reset_history, confidence=conf_img)
+            outs[sig] = flat(out_sig)
+        diff, spec = outs["relax_diff"], outs["relax_spec"]
 
     reblur_mid: dict = {}
     if cfg.denoiser == Denoiser.REBLUR:
@@ -139,7 +206,7 @@ def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
                 illum_in = common.anti_firefly(illum_in)
             reblur_mid[sig] = reblur.accumulate(
                 hist_sig, illum_in, img(gb[hitdist_key]), img(gb["view_z"]),
-                img(gb["normal"]), mv_sig, s, reset=reset_history)
+                img(gb["normal"]), mv_sig, s, reset=reset_history, confidence=conf_img)
 
     return {"gb_updates": gb_updates, "diff": diff, "spec": spec, "shadow": shadow,
             "new_h": new_h, "reblur": reblur_mid}
@@ -148,9 +215,9 @@ def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
 def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
                        history: History, gb: dict, aux: dict, mid: dict,
                        reset_history=False):
-    """Phase 2b — REBLUR blur and stabilization, composition, REFERENCE
-    accumulation and the new history. ``gb`` has mid["gb_updates"] merged
-    in. Returns (outputs, new history)."""
+    """Phase 2b — REBLUR blur and stabilization, the SH resolve and
+    composition, REFERENCE accumulation, TAA and the new history. ``gb`` has
+    mid["gb_updates"] merged in. Returns (outputs, new history)."""
     frame = history.frame_index
     diff, spec, shadow = mid["diff"], mid["spec"], mid["shadow"]
     new_h = dict(mid["new_h"])
@@ -180,13 +247,32 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
             outs[sig] = flat(out_sig)
         diff, spec = outs["reblur_diff"], outs["reblur_spec"]
 
-    composed = composition.compose(gb, diff, spec, shadow)
+    if cfg.nrd_mode == NrdMode.SH:
+        # the SH resolve re-sharpens each lobe with the shading normal
+        composed = composition.compose(
+            gb, sh.resolve({"radiance": diff, "dir": gb["diff_dir"]}, gb["normal"]),
+            sh.resolve({"radiance": spec, "dir": gb["spec_dir"]}, gb["normal"]),
+            shadow)
+    else:
+        composed = composition.compose(gb, diff, spec, shadow)
     if cfg.denoiser == Denoiser.REFERENCE and history.reference is not None:
         composed, new_h["reference"] = reference.accumulate(history.reference, composed,
                                                             reset=reset_history)
+
+    final, taa_wide_mask = composed, None
+    if cfg.use_taa and history.taa is not None:
+        # TAA on the exposed image; sky and hair pixels take the wide (5x5)
+        # neighbourhood clamp
+        taa_wide_mask = gb["miss"] | ((gb["flags"] & cfgmod.FLAG_HAIR) > 0)
+        taa_out, new_h["taa"] = taa.apply(
+            history.taa, img(composed * settings.exposure * 1e-2), img(gb["mv"]),
+            img(gb["view_z"]), wide_mask=img(taa_wide_mask), reset=reset_history)
+        final = flat(taa_out)
+    if cfg.use_sharc:
+        new_h["sharc"] = aux["sharc"]
     outputs = {
         "color": composed,
-        "final": composed,
+        "final": final,
         "display": None,
         "debug": None,
         "view_z": gb["view_z"],
@@ -196,7 +282,7 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
         "spec_radiance": spec,
         "gbuffer": gb,
         "glass_mask": None,
-        "taa_wide_mask": None,
+        "taa_wide_mask": taa_wide_mask,
     }
     return outputs, History(**new_h)
 
@@ -205,12 +291,14 @@ def image_frame(cfg: RenderConfig, settings: Settings, cam: Camera,
                 history: History, gb: dict, aux: dict, reset_history=False):
     """Phase 2 — image_frame_begin then image_frame_finish. Returns
     (outputs, new history); outputs["color"] is the composed HDR radiance
-    (N, 3), accumulated under REFERENCE."""
+    (N, 3), accumulated under REFERENCE; outputs["final"] is the TAA output
+    where TAA is on."""
     trace_opaque.check_config_supported(cfg)
-    ported = {Denoiser.REFERENCE: history.reference, Denoiser.REBLUR: history.reblur_diff}
+    ported = {Denoiser.REFERENCE: history.reference, Denoiser.REBLUR: history.reblur_diff,
+              Denoiser.RELAX: history.relax_diff}
     if ported.get(cfg.denoiser) is None:
         raise NotImplementedError(
-            f"denoiser {cfg.denoiser.name} with this History: only REFERENCE and REBLUR are "
+            f"denoiser {cfg.denoiser.name} with this History: REFERENCE, REBLUR and RELAX are "
             "ported, each with the History of its own RenderConfig")
     mid = image_frame_begin(cfg, settings, cam, history, gb, aux, reset_history)
     gb = dict(gb, **mid["gb_updates"])

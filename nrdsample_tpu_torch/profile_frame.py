@@ -10,7 +10,8 @@ under ``torch.profiler``. From the profiled frames it prints the device time
 per frame (the summed durations of the CUDA kernels, which run on one stream
 and do not overlap), kernels per frame, the device time of the
 ``trace_frame`` and ``image_frame`` ranges that ``render_frame`` opens, and
-the kernels with the most device time; the idle share is 1 - device time /
+the kernels with the most device time, then each of the port's hand-written
+kernels (``csrc/*.cu``) wherever it ranks; the idle share is 1 - device time /
 unprofiled wall time of the same run (the profiler's own host cost inflates
 the profiled wall time several-fold).
 """
@@ -19,10 +20,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import re
 import time
 
 import torch
 
+from nrdsample_tpu_torch.ops import _kernels
 from nrdsample_tpu_torch.pipeline import bench_configs, frame
 
 PHASES = ("trace_frame", "image_frame")
@@ -78,10 +81,21 @@ def profile(name: str, n_frames: int, warmup: int) -> list[str]:
         "device ms/frame by phase: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items())),
         "kernels by device time (ms/frame, launches/frame, share of busy):",
     ]
-    for k, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
+
+    def row(k, ms, n):
         short = k.replace("void ", "").replace("at::native::", "").replace(
             "(anonymous namespace)::", "")
-        lines.append(f"  {ms:9.3f} {n / n_frames:7.1f} {ms / busy_ms:6.3f}  {short[:130]}")
+        return f"  {ms:9.3f} {n / n_frames:7.1f} {ms / busy_ms:6.3f}  {short[:130]}"
+
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    lines += [row(k, ms, n) for k, (ms, n) in ranked[:25]]
+    own = set()
+    for src in _kernels.sources():
+        with open(src) as f:
+            own.update(re.findall(r"__global__[^{;]*?\b(\w+_kernel)\s*\(", f.read()))
+    lines.append("the port's own kernels (csrc/*.cu), wherever they rank:")
+    lines += [row(k, ms, n) for k, (ms, n) in ranked
+              if re.sub(r"^(void )?(\(anonymous namespace\)::)?", "", k).split("(")[0] in own]
     return lines
 
 

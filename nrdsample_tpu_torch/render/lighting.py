@@ -1,6 +1,5 @@
 """Analytic sun/sky model, direct lighting and shadow-ray setup (counterpart
-of ``nrdsample_tpu/render/lighting.py``; the path casts its shadow rays in one
-batched launch, so the single-ray ``sun_shadow_ray`` is not ported)."""
+of ``nrdsample_tpu/render/lighting.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +7,7 @@ import torch
 
 from nrdsample_tpu_torch import config as cfg
 from nrdsample_tpu_torch.mathlib import brdf, color, geometry as geo, rng, sampling
+from nrdsample_tpu_torch.ops import traversal
 
 
 def _vec3(values, like):
@@ -107,3 +107,14 @@ def sun_shadow_ray_params(x, n, sun_dir, tan_angular_radius, pixel_idx, frame,
     sdir = geo.normalize(bx * disk[..., 0:1] + by * disk[..., 1:2] + sun_dir)
     xo = geo.offset_ray(x, n, view_z, unproject, cfg.PT_SHADOW_RAY_OFFSET)
     return xo, sdir
+
+
+def sun_shadow_ray(ctx, x, n, sun_dir, tan_angular_radius, pixel_idx, frame, unproject, view_z,
+                   dim: int = 7000):
+    """Cast one jittered sun-cone visibility ray per element (the SHARC probe
+    paths; the frame's own path batches its shadow rays). Returns visibility
+    in {0, 1}."""
+    xo, sdir = sun_shadow_ray_params(x, n, sun_dir, tan_angular_radius, pixel_idx, frame,
+                                     unproject, view_z, dim)
+    blocked = traversal.any_hit(ctx, xo, sdir, traversal.T_MAX)
+    return 1.0 - blocked.to(x.dtype)

@@ -16,7 +16,7 @@ from nrdsample_tpu_torch import config as cfgmod
 from nrdsample_tpu_torch.config import Denoiser, RenderConfig, Settings, TracingMode
 from nrdsample_tpu_torch.denoise.reblur import spec_magic_curve
 from nrdsample_tpu_torch.mathlib import bluenoise, brdf, color, geometry as geo, rng, sampling
-from nrdsample_tpu_torch.ops import traversal
+from nrdsample_tpu_torch.ops import sharc, traversal
 from nrdsample_tpu_torch.render import emissive_is, gbuffer, lighting, raycone
 from nrdsample_tpu_torch.scene import camera as cam_mod
 from nrdsample_tpu_torch.scene.types import Camera, Scene
@@ -26,18 +26,16 @@ def check_config_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for every RenderConfig branch the port does
     not have yet, naming the slice that brings it."""
     later = {
-        "denoiser RELAX or NEURAL (slice 3)":
-            cfg.denoiser not in (Denoiser.REFERENCE, Denoiser.REBLUR),
-        "use_sharc (slice 3)": cfg.use_sharc,
-        "use_confidence (slice 3)": cfg.use_confidence,
-        "use_l1_cache (slice 3)": cfg.use_l1_cache,
-        "use_taa (slice 3)": cfg.use_taa,
-        "psr_bounce_num > 0 (slice 3)": cfg.psr_bounce_num > 0,
-        "tracing_mode HALF (checkerboard, slice 3)": cfg.tracing_mode == TracingMode.HALF,
-        "nrd_mode != NORMAL (slice 3)": cfg.nrd_mode != cfgmod.NrdMode.NORMAL,
+        "denoiser NEURAL (post/neural_rr.py, off the frame path)": cfg.denoiser == Denoiser.NEURAL,
+        "use_l1_cache (render/l1cache.py, a later slice)": cfg.use_l1_cache,
+        "psr_bounce_num > 0 (the PSR walk, a later slice)": cfg.psr_bounce_num > 0,
+        "tracing_mode HALF (checkerboard.resolve, a later slice)":
+            cfg.tracing_mode == TracingMode.HALF,
+        "nrd_mode OCCLUSION or DIRECTIONAL_OCCLUSION (denoise/occlusion.py, a later slice)":
+            cfg.nrd_mode in (cfgmod.NrdMode.OCCLUSION, cfgmod.NrdMode.DIRECTIONAL_OCCLUSION),
         "enable_post (post chain, off the frame path)": cfg.enable_post,
-        "on_screen != FINAL (debug views, slice 3)": cfg.on_screen != cfgmod.OnScreen.FINAL,
-        "use_validation_overlay (slice 3)": cfg.use_validation_overlay,
+        "on_screen != FINAL (debug views, a later slice)": cfg.on_screen != cfgmod.OnScreen.FINAL,
+        "use_validation_overlay (a later slice)": cfg.use_validation_overlay,
         "stress tests (slice 5)": (cfg.use_inf_stress_test or cfg.use_drs_stress_test
                                    or cfg.use_firefly_test or cfg.use_material_id_test),
         "use_sanitization (slice 5)": cfg.use_sanitization,
@@ -165,11 +163,13 @@ def generate_ray_and_update_throughput(props: dict, throughput: torch.Tensor,
 
 def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                 cfg: RenderConfig, settings: Settings, frame,
-                props0: dict, pixel_idx: torch.Tensor, cone0: dict, primary_shadow: tuple):
+                props0: dict, pixel_idx: torch.Tensor, cone0: dict, primary_shadow: tuple,
+                sharc_state: sharc.SharcState | None = None):
     """The TraceOpaque() path loop for all pixels. Returns the demodulated
     diff/spec radiance, normalized hit distances and the visibility and
     blocker distance of the caller's ``primary_shadow`` rays (origin,
-    direction), which join the single batched shadow launch."""
+    direction), which join the single batched shadow launch. With
+    ``sharc_state`` a bounce hit may take its radiance from the cache."""
     n_px = pixel_idx.shape[0]
     f32 = cfg.dtype
     dev = pixel_idx.device
@@ -274,8 +274,29 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
             l_cached = props["lemi"]
             cache_w = zeros1()
 
-            # no radiance cache in this slice: the analytic term is chosen
-            # wherever the hit is not a miss; the last bounce takes the max
+            if sharc_state is not None:
+                # L2 SHARC lookup, gated by the lobe's footprint against the
+                # voxel size; the level rounding is dithered per pixel and
+                # frame so the LOD rings dissolve into noise
+                lod_dither = rng.uniform1(pixel_idx, frame, dim_base + 11)
+                vs = sharc.voxel_size(sharc.grid_level(props["x"], cam.position, dither=lod_dither))
+                rt = torch.where(is_diffuse, 1.0, props["roughness"])
+                lobe_tan = rt * rt / (1.0 + rt * rt)
+                footprint = props["t"] * lobe_tan * 2.0
+                footprint_norm = torch.clamp(footprint / torch.clamp_min(vs, 1e-6), 0.0, 1.0)
+                if bounce == cfg.bounce_num:
+                    gate = torch.ones_like(is_diffuse)
+                else:
+                    gate = rng.uniform1(pixel_idx, frame, dim_base + 8) < footprint_norm
+                gate = gate & (rng.uniform1(pixel_idx, frame, dim_base + 10) > cache_w)
+                rad, found = sharc.query(sharc_state, props["x"], props["n"], cam.position,
+                                         dither=lod_dither)
+                use = found & gate & ~props["miss"]
+                l_cached = torch.where(use[..., None], rad, l_cached)
+                cache_w = torch.where(use, 1.0, cache_w)
+
+            # stochastic choice of the analytic term by the cache confidence;
+            # the last bounce takes the max so no energy is dropped
             miss_rnd = rng.uniform1(pixel_idx, frame, dim_base + 9)
             use_analytic = (miss_rnd >= cache_w) & ~props["miss"]
             if bounce < cfg.bounce_num:
@@ -382,9 +403,11 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
 
 def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                  cfg: RenderConfig, settings: Settings, frame,
-                 pixel_idx: torch.Tensor | None = None):
+                 pixel_idx: torch.Tensor | None = None,
+                 sharc_state: sharc.SharcState | None = None):
     """Primary ray + G-buffer + indirect path loop (TraceOpaque.cs.hlsl main).
-    ``pixel_idx`` (flat int32 indices) selects the pixels to trace."""
+    ``pixel_idx`` (flat int32 indices) selects the pixels to trace;
+    ``sharc_state`` is the radiance cache the bounces may read."""
     check_config_supported(cfg)
     dev = scene.tris.p0.device
     if pixel_idx is None:
@@ -433,7 +456,7 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         unproject, view_z, dim=501, rnd=_shadow_rnd(cfg, pixel_idx, frame, 501),
     )
     paths = trace_paths(ctx, scene, cam, cfg, settings, frame, props, pixel_idx,
-                        cone0=cone, primary_shadow=(p_sxo, p_sdir))
+                        cone0=cone, primary_shadow=(p_sxo, p_sdir), sharc_state=sharc_state)
     shadow = paths.pop("primary_shadow")
     shadow = torch.where(props["miss"], 1.0, shadow)
     shadow = torch.where(settings.disable_shadows > 0, 1.0, shadow)

@@ -161,25 +161,34 @@ LATER_CONFIGS = {
 
 
 #: branches of LATER_CONFIGS that the port has since gained
-PORTED_CONFIGS = {"reblur"}
+PORTED_CONFIGS = {"reblur", "relax", "sharc", "taa", "nrd_sh"}
 
 
 @pytest.mark.parametrize("name", sorted(LATER_CONFIGS))
 def test_later_config_branches_raise(name):
     """A branch of a later slice raises NotImplementedError from
-    History.create and from render_frame. REBLUR is ported now: its 8x8
-    frame of the Cornell box is finite and its histories advance."""
-    cfg = RenderConfig(width=8, height=8, **LATER_CONFIGS[name])
+    History.create and from render_frame. REBLUR, RELAX, SHARC, TAA and the
+    SH resolve are ported now: their 8x8 frame of the Cornell box is finite
+    and their histories advance."""
+    cfg = RenderConfig(width=8, height=8, sharc_capacity=1 << 10, **LATER_CONFIGS[name])
     ctx, scene = traversal.build_context(procedural.cornell_box(), device="cpu")
     cam = look_at([0, -3, 1], [0, 0, 1], device="cpu")
     if name in PORTED_CONFIGS:
         out, h = frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
                                     frame.History.create(cfg, "cpu"))
-        assert bool(torch.isfinite(out["color"]).all()) and float(out["color"].mean()) > 0.0
-        assert h.reference is None and int(h.frame_index) == 1
-        # one frame accumulated (anti-lag may cut REBLUR's count below 1)
-        assert float(h.sigma.frames.min()) == float(h.sigma.frames.max()) == 1.0
-        assert 0.0 < float(h.reblur_diff.frames.min()) and float(h.reblur_diff.frames.max()) == 1.0
+        for plane in ("color", "final"):
+            assert bool(torch.isfinite(out[plane]).all()) and float(out[plane].mean()) > 0.0
+        assert int(h.frame_index) == 1
+        if name in ("reblur", "relax"):
+            # one frame accumulated (anti-lag may cut REBLUR's count below 1)
+            assert h.reference is None
+            assert float(h.sigma.frames.min()) == float(h.sigma.frames.max()) == 1.0
+            frames = getattr(h, f"{name}_diff").frames
+            assert 0.0 < float(frames.min()) and float(frames.max()) == 1.0
+        elif name == "sharc":
+            assert int((h.sharc.keys != 0).sum()) > 0
+        elif name == "taa":
+            assert int(h.taa.valid) == 1 and h.taa.color.shape == (8, 8, 3)
         return
     with pytest.raises(NotImplementedError):
         frame.History.create(cfg, "cpu")

@@ -85,14 +85,24 @@ def test_convert_camera_settings_history_round_trip():
     s = JSettings(sun_elevation=jnp.float32(-30.0), disable_shadows=jnp.int32(1),
                   blink=jnp.int32(1))
     _assert_leaves_equal(_np_leaves(convert.settings_from_numpy(_np_leaves(s), device="cpu")), _np_leaves(s))
-    # the REFERENCE history, and REBLUR's two signal histories plus SIGMA's
-    for render in ({}, {"denoiser": 0}):
-        h = jframe.History.create(cfg_from_render(render, res=8))
+    # the REFERENCE history; REBLUR's two signal histories plus SIGMA's; RELAX's
+    # with SIGMA's, TAA's, the SHARC cache and the confidence history
+    slots = ("reference", "relax_diff", "relax_spec", "reblur_diff", "reblur_spec", "sigma", "taa",
+             "sharc", "confidence")
+    relax_cfg = dataclasses.replace(cfg_from_render({"denoiser": 1}, res=10), use_taa=True,
+                                    use_sharc=True, use_confidence=True, sharc_capacity=64)
+    for cfg in (cfg_from_render({}, res=8), cfg_from_render({"denoiser": 0}, res=8), relax_cfg):
+        h = jframe.History.create(cfg)
         h = dataclasses.replace(h, frame_index=jnp.int32(5))
-        want = {k: None if getattr(h, k) is None else _np_leaves(getattr(h, k))
-                for k in ("reference", "reblur_diff", "reblur_spec", "sigma")}
+        want = {k: None if getattr(h, k) is None else _np_leaves(getattr(h, k)) for k in slots}
         want["frame_index"] = np.asarray(h.frame_index)
         got = _np_leaves(convert.history_from_numpy(want, device="cpu"))
+        if want["sharc"] is not None:
+            # SHARC's uint32 keys arrive as the port's int64 keys, same values
+            keys = want["sharc"].pop("keys")
+            got_keys = got["sharc"].pop("keys")
+            assert keys.dtype == np.uint32 and got_keys.dtype == np.int64
+            np.testing.assert_array_equal(got_keys, keys.astype(np.int64))
         _assert_leaves_equal(got, want)
 
 
