@@ -3,18 +3,20 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``nrdsample_tpu_torch/csrc`` and renders
-three configurations through ``pipeline.frame.render_frame``: first
+four configurations through ``pipeline.frame.render_frame``: first
 shaderballs512 (cluster traversal through the packet kernel, REBLUR + SIGMA
-through the bilinear gather kernel), then, after holding each of the seven
+through the bilinear gather kernel), then, after holding each of the eight
 kernels against its plain PyTorch version on the card at the main paths'
-shapes, cornell256 and kitchen1080 (dense traversal, RELAX + SIGMA, SH, TAA,
+shapes, cornell256, kitchen1080 (dense traversal, RELAX + SIGMA, SH, TAA,
 SHARC and history confidence, through the dense hit, emissive probe,
-bilinear gather, RELAX taccum, RELAX à-trous and TAA resolve kernels). It
-checks that each main path went through its kernels, compares card frames
-with CPU frames and the cornellbox-000 golden, and prints one JSON line of
-kernels plus a final ``{"ok": true, "device": ...}`` line. Any failed phase
-exits non-zero with no result line. Needs a CUDA device; imports nothing of
-JAX.
+bilinear gather, RELAX taccum, RELAX à-trous and TAA resolve kernels) and
+exterior720 (1.06M triangles through the supercluster stage 1 and the
+streaming packet kernel, glass and the emitters through the resident packet
+kernel, RELAX + SIGMA, TAA, SHARC with its FULL pass). It checks that each
+main path went through its kernels, compares card frames with CPU frames
+and the cornellbox-000 golden, and prints one JSON line of kernels plus a
+final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
+with no result line. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +70,11 @@ ATROUS_OPS = 9 * 37 + 11 + 6
 TAA_OPS = 81 + 18 + 18 + 12 + 64 + 12 + 4 + 8 + 1 + 9
 TAA_WIDE_EXTRA_OPS = 225 - 81
 KITCHEN_FRAMES = 4
+EXTERIOR_FRAMES = 3
+EXTERIOR_DIVERGENT_RAYS = 786_432   # a sorted bounce-sized set on the exterior
+#: the small exterior of the card-vs-CPU check: 3,196 opaque triangles (25
+#: clusters), 1,488 glass (12 clusters) and 674 emitters
+SMALL_EXTERIOR = dict(cobbles=8, tree_count=6, tree_res=8, lamp_count=4)
 
 
 def fail(msg: str):
@@ -221,6 +228,88 @@ def frame_mismatch(ref: torch.Tensor, got: torch.Tensor) -> tuple[float, float]:
     return float(bad.double().mean()), abs(float(got.mean() - ref.mean())) / max(abs(float(ref.mean())), 1e-12)
 
 
+def check_stream_kernel(cs, tris, cam, cfg, dev, card) -> dict:
+    """The streaming packet kernel on the exterior's opaque ClusterSet: its
+    coherent camera rays, a divergent bounce-sized set with per-ray t_max
+    (re-binned by morton order, as the frame does) and the any-hit mode on
+    that set, each held against the plain scan on 2^17 rays drawn from the
+    set, then timed alone on stage 1's worklists beside the resident kernel
+    on the same inputs (which must agree with it exactly). Returns {case:
+    (max |err|, stream ms, plain ms, bound, subset size, resident ms,
+    stage-1 ms)}."""
+    from nrdsample_tpu_torch.ops import cluster, packet, traversal
+    from nrdsample_tpu_torch.scene import camera
+
+    pix = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
+    co, cd, _ = camera.camera_rays(cam, cfg.width, cfg.height, pix, torch.tensor(0, device=dev))
+    co, cd = co.contiguous(), cd.contiguous()
+    ctm = torch.full((cfg.n_pixels,), traversal.T_MAX, device=dev)
+    rs = np.random.RandomState(6)
+    n = EXTERIOR_DIVERGENT_RAYS
+    vo = torch.from_numpy(rs.uniform([-50.0, -50.0, 0.05], [50.0, 50.0, 15.0],
+                                     (n, 3)).astype(np.float32)).to(dev)
+    vd = rs.randn(n, 3).astype(np.float32)
+    vd = torch.from_numpy(vd / np.linalg.norm(vd, axis=-1, keepdims=True)).to(dev)
+    vtm = torch.from_numpy(np.where(rs.uniform(size=n) < 0.5, traversal.T_MAX,
+                                    rs.uniform(0.5, 40.0, n)).astype(np.float32)).to(dev)
+    out = {}
+    for case, (ro, rd, rtm, sort, any_hit) in {
+        "primary": (co, cd, ctm, False, False),
+        "divergent": (vo, vd, vtm, True, False),
+        "any_hit": (vo, vd, vtm, True, True),
+    }.items():
+        n = ro.shape[0]
+        before = packet.STREAM_LAUNCHES
+        got = packet.closest_hit_packet_cuda(cs, ro, rd, rtm, sort=sort, any_hit=any_hit,
+                                             need_uv=not any_hit)
+        torch.cuda.synchronize()
+        if packet.STREAM_LAUNCHES != before + 1:
+            fail(f"the {case} rays did not take the streaming kernel")
+        sub = torch.from_numpy(np.sort(np.random.RandomState(7).choice(n, PLAIN_SUBSET,
+                                                                        replace=False))).to(dev)
+        so, sd, stm = ro[sub], rd[sub], rtm[sub]
+        if any_hit:
+            plain_ms, ref = once_ms(lambda: cluster.any_hit_clustered(cs, so, sd, stm))
+            blocked = (got["tri"][sub] >= 0) & (got["t"][sub] < stm)
+            tri_bad, err, ok = int((blocked != ref).sum()), 0.0, bool(torch.equal(blocked, ref))
+            hits = int(ref.sum())
+        else:
+            plain_ms, ref = once_ms(lambda: cluster.closest_hit_clustered(cs, so, sd, stm))
+            tri_bad, err, ok = compare_hits({k: v[sub] for k, v in got.items()}, ref, so, sd, tris)
+            hits = int((ref["tri"] >= 0).sum())
+        # the kernels alone on stage 1's worklists of the rays in packet order
+        perm = (torch.sort(packet._morton_sort_keys(ro, rd, cs), stable=True).indices if sort
+                else torch.arange(n, device=dev))
+        ko, kd, ktm = ro[perm].contiguous(), rd[perm].contiguous(), rtm[perm].contiguous()
+        order, keys = packet.worklists(ko, kd, cs, ktm)
+        a = packet.launch_stream(cs, ko, kd, ktm, order, keys, any_hit, not any_hit)
+        b = packet.launch(cs, ko, kd, ktm, order, keys, any_hit)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a[k], b[k]) for k in ("t", "tri")) and (
+            any_hit or all(torch.equal(a[k], b[k]) for k in "uv"))
+        ms = graph_ms(lambda: packet.launch_stream(cs, ko, kd, ktm, order, keys, any_hit,
+                                                   not any_hit))
+        res_ms = graph_ms(lambda: packet.launch(cs, ko, kd, ktm, order, keys, any_hit))
+        stage1_ms = median_ms(lambda: packet.worklists(ko, kd, cs, ktm), reps=3)
+        tests = packet_tests_needed(cs, ro, rd, rtm, got, any_hit, chunk=1 << 14)
+        walk = packet_walk_tests(keys, got["t"][perm], packet.BLOCK_RAYS)
+        bnd = bound_ms(n * (28 + 16) + order.numel() * 8 + cs.slab.numel() * 4, tests * MT_OPS)
+        print(f"[packet_hit_stream] exterior {case} C={cs.count} N={n} sort={sort} "
+              f"any_hit={any_hit}: {'blocked' if any_hit else 'hits'} {hits} of {PLAIN_SUBSET} "
+              f"checked, tri (or blocked) differences {tri_bad} (float64-proven ties allowed), "
+              f"max|err| t/u/v {err:.3g}, resident kernel on the same worklists "
+              f"{'identical' if same else 'DIFFERENT'} | streaming kernel {ms:.3f} ms, resident "
+              f"kernel {res_ms:.3f} ms at N={n} (stage 1 {stage1_ms:.3f} ms), plain "
+              f"{plain_ms:.3f} ms at N={PLAIN_SUBSET}, bound {bnd[0]:.4f} ms ({bnd[1]}, {tests} "
+              f"tests needed; the walk makes {walk}) ({card})")
+        if not ok or not same or hits == 0:
+            fail(f"streaming packet kernel disagrees with its plain version or the resident "
+                 f"kernel ({case})")
+        out[case] = (err, ms, plain_ms, bnd, PLAIN_SUBSET, res_ms, stage1_ms)
+        del got, ref, ko, kd, ktm, order, keys, a, b
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
@@ -239,6 +328,7 @@ def main() -> int:
     def reset_counts():
         for m in counters:
             m.LAUNCHES = 0
+        packet.STREAM_LAUNCHES = 0
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -629,6 +719,69 @@ def main() -> int:
         fail("the RELAX, TAA or SHARC history did not advance")
     del out, img, hist
 
+    # ---- 5b. the 1.06M-triangle main path: exterior720 (glass, SHARC FULL,
+    # emissive clusters); first the streaming packet kernel on its opaque
+    # ClusterSet, then a few frames ----
+    t0 = time.perf_counter()
+    ctxs, scene, cam, cfg, settings = bench_configs.setup("exterior720", dev)
+    cs = ctxs.opaque.clusters
+    print(f"[exterior720 setup] {scene.tris.count} triangles (opaque {cs.count} clusters, slab "
+          f"{packet.vmem_table_bytes(cs)} B; transparent {ctxs.transparent.clusters.count} "
+          f"clusters; emissive {ctxs.opaque.emissive['clusters'].count} clusters of "
+          f"{int(scene.emissive_count)} emitters) in {time.perf_counter() - t0:.1f} s")
+    tris = {k: getattr(scene.tris, k)[:ctxs.transparent.tri_offset].cpu().numpy()
+            for k in ("p0", "e1", "e2")}
+    stream_res = check_stream_kernel(cs, tris, cam, cfg, dev, card)
+    del tris
+    hist = frame.History.create(cfg, dev)
+    exterior_counters = {"packet_hit_stream": None, "packet_hit": packet,
+                         "bilinear_sample": reproject, "relax_taccum": taccum_cuda,
+                         "relax_atrous": atrous_cuda, "taa_resolve": taa_cuda,
+                         "dense_hit": dense_cuda, "emissive_probe": emissive_probe}
+
+    def count(k):
+        m = exterior_counters[k]
+        return packet.STREAM_LAUNCHES if m is None else m.LAUNCHES
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_frame = []
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(EXTERIOR_FRAMES):
+        before = {k: count(k) for k in exterior_counters}
+        out, hist = frame.render_frame(ctxs, scene, cam, cfg, settings, hist)
+        per_frame.append({k: count(k) - before[k] for k in exterior_counters})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / EXTERIOR_FRAMES
+    for k in exterior_counters:
+        launches[k] = launches.get(k, 0) + count(k)
+    peak = torch.cuda.max_memory_allocated(dev)
+    lums = {k: float(color.luminance(out[k]).mean()) for k in ("color", "final")}
+    rays_per_px = bench_configs.rays_per_pixel(cfg, has_glass=True)
+    n_glass = int(out["glass_mask"].sum())
+    n_keys = int((hist.sharc.keys != 0).sum())
+    frames_max = float(hist.relax_diff.frames.max())
+    print(f"[exterior720] {ms:.3f} ms/frame over {EXTERIOR_FRAMES} frames (first included), "
+          f"{rays_per_px * cfg.n_pixels / (ms * 1e-3):.4g} rays/s ({rays_per_px:.4f} rays/px), "
+          f"peak memory {peak} B, mean luminance composed {lums['color']:.6g} TAA "
+          f"{lums['final']:.6g}, glass pixels {n_glass}, launches/frame {per_frame[-1]}, RELAX "
+          f"frames max {frames_max:.3f}, SHARC keys {n_keys} of {hist.sharc.capacity} ({card})")
+    planes = ("color", "final", "diff_radiance", "spec_radiance", "shadow", "view_z", "normal")
+    for k in planes:
+        if not bool(torch.isfinite(out[k]).all()):
+            fail(f"exterior720 {k} plane is not finite")
+    if not all(lums[k] > 0.0 for k in lums) or n_glass == 0 or n_keys == 0:
+        fail("exterior720: no light, no glass pixel or no SHARC key")
+    needed = ("packet_hit_stream", "packet_hit", "bilinear_sample", "relax_taccum",
+              "relax_atrous", "taa_resolve")
+    if not all(f[k] > 0 for f in per_frame for k in needed):
+        fail(f"an exterior720 frame did not launch all of {needed}: per-frame launches {per_frame}")
+    if not frames_max > 1.0 or int(hist.taa.valid) != 1:
+        fail("the exterior720 RELAX or TAA history did not advance")
+    exterior = (ms, per_frame[-1])
+    del out, hist, ctxs, scene, cs
+
     # ---- 6. card against CPU, end to end; the cornellbox-000 golden ----
     res = 64
     cfg = RenderConfig(width=res, height=res)
@@ -684,6 +837,43 @@ def main() -> int:
           f"outlier share {frac:.6f} ({plane}), color and TAA mean gap {rel:.3g} (rel)")
     if frac > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL:
         fail("the card's kitchen frame disagrees with the CPU frame")
+
+    # the small exterior: on the card with the flat-stage-1 and streaming
+    # limits lowered, so that its 25 opaque clusters take the supercluster
+    # stage 1 and the streaming kernel (glass and emitters the resident one)
+    outs = {}
+    flat_max, vmem_limit = packet.FLAT_WORKLIST_MAX_C, packet.PACKET_VMEM_LIMIT
+    for where in ("cuda", "cpu"):
+        ctxs, scene, cam, cfg, settings = bench_configs.setup(
+            "exterior720", where, scene_kw=SMALL_EXTERIOR, width=80, height=48,
+            sharc_capacity=1 << 16)
+        hist = frame.History.create(cfg, where)
+        before = (packet.STREAM_LAUNCHES, packet.LAUNCHES)
+        if where == "cuda":
+            packet.FLAT_WORKLIST_MAX_C = 16
+            packet.PACKET_VMEM_LIMIT = packet.vmem_table_bytes(ctxs.opaque.clusters) - 1
+        try:
+            for _ in range(3):
+                out, hist = frame.render_frame(ctxs, scene, cam, cfg, settings, hist)
+        finally:
+            packet.FLAT_WORKLIST_MAX_C, packet.PACKET_VMEM_LIMIT = flat_max, vmem_limit
+        small_launches = (packet.STREAM_LAUNCHES - before[0], packet.LAUNCHES - before[1])
+        if where == "cuda" and not all(small_launches):
+            fail(f"the small exterior on the card launched (stream, resident) {small_launches}")
+        outs[where] = out
+    worst = []
+    for plane in ("color", "final", "diff_radiance", "spec_radiance", "shadow", "view_z", "normal"):
+        frac, rel = frame_mismatch(outs["cpu"][plane], outs["cuda"][plane])
+        worst.append((frac, rel, plane))
+    frac, _, plane = max(worst)
+    rel = max(r for _, r, p in worst if p in ("color", "final"))
+    glass_same = torch.equal(outs["cpu"]["glass_mask"], outs["cuda"]["glass_mask"].cpu())
+    print(f"[card vs cpu] exterior {SMALL_EXTERIOR} 80x48, 3 frames, supercluster stage 1 and "
+          f"streaming kernel on the card: worst outlier share {frac:.6f} ({plane}), color and "
+          f"TAA mean gap {rel:.3g} (rel), glass mask {'equal' if glass_same else 'DIFFERENT'} "
+          f"({int(outs['cpu']['glass_mask'].sum())} pixels)")
+    if frac > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL or not glass_same:
+        fail("the card's exterior frame disagrees with the CPU frame")
 
     golden = np.load(os.path.join(REPO, "Tests", "golden", "cornellbox-000.npz"))
     res = int(golden["res"])
@@ -757,7 +947,20 @@ def main() -> int:
          "max_abs_err": max(v[0] for v in taa_res.values()),
          "ms": taa_w[1], "plain_ms": taa_w[2], "bound_ms": taa_w[3][0], "bound_by": taa_w[3][1],
          "library_ms": None},
+        # ms and plain_ms: the coherent camera rays of exterior720 (plain_ms
+        # on a 2^17-ray subset of them); bound: the tests those rays need
+        {"name": "packet_hit_stream", "route": "cuda",
+         "source": "nrdsample_tpu_torch/csrc/packet_hit_stream.cu",
+         "replaces": "nrdsample_tpu/ops/packet.py:504",
+         "launches": launches["packet_hit_stream"],
+         "max_abs_err": max(v[0] for v in stream_res.values()),
+         "ms": stream_res["primary"][1], "plain_ms": stream_res["primary"][2],
+         "bound_ms": stream_res["primary"][3][0], "bound_by": stream_res["primary"][3][1],
+         "library_ms": None},
     ]
+    print(f"[exterior720 summary] {exterior[0]:.3f} ms/frame, launches/frame {exterior[1]}; "
+          f"streaming vs resident kernel ms on the same worklists: " + ", ".join(
+              f"{k} {v[1]:.3f} vs {v[5]:.3f}" for k, v in stream_res.items()) + f" ({card})")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -59,6 +59,18 @@ def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return v - 2.0 * dot3(v, n)[..., None] * n
 
 
+def refract(v: torch.Tensor, n: torch.Tensor, eta) -> torch.Tensor:
+    """Refract the incident v (pointing into the surface) about n, with eta =
+    n_i / n_t (a scalar or a per-ray tensor); 0 on total internal
+    reflection."""
+    eta = torch.as_tensor(eta, dtype=v.dtype, device=v.device)
+    cos_i = -dot3(v, n)
+    sin2_t = (eta * eta) * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0) + 1e-12)
+    r = eta[..., None] * v + (eta * cos_i - cos_t)[..., None] * n
+    return torch.where((sin2_t > 1.0)[..., None], 0.0, r)
+
+
 def offset_ray(p: torch.Tensor, n: torch.Tensor, view_z, unproject, offset_pixels: float):
     """Self-intersection offset along the normal: pixels of world size at
     the hit's depth, clamped to 1e-5."""

@@ -39,6 +39,9 @@ SIGNATURES = {
     # origin, direction, t_max, order, keys, slab, n_clusters, n_packets,
     # any_hit, t, u, v, tri, stream
     "nrd_packet_hit": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P],
+    # the same and need_uv after any_hit
+    "nrd_packet_hit_stream": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _P, _P, _P, _P,
+                              _P],
     # img, h, w, c, pos, n, out, stream
     "nrd_bilinear_sample": [_P, _I32, _I32, _I32, _P, _I64, _P, _P],
     # hist illum, moments, view_z, normal, frames; illum, view_z, normal, mv,

@@ -1,8 +1,10 @@
 """Clustered traversal (counterpart of ``nrdsample_tpu/ops/cluster.py``).
 
-Triangles are put in the order of a binned-SAH BVH build, padded with
-degenerate triangles to a multiple of ``CLUSTER_SIZE`` and cut into
-128-triangle clusters with AABBs. No tree is kept.
+Triangles are put in the order of a binned-SAH BVH build (the host C++
+builder of ``native/``, as the JAX package does; ``scene/bvh.build_order`` is
+its plain numpy version), padded with degenerate triangles to a multiple of
+``CLUSTER_SIZE`` and cut into 128-triangle clusters with AABBs. No tree is
+kept.
 
 ``closest_hit_clustered`` and ``any_hit_clustered`` are the plain versions of
 the packet kernel (``csrc/packet_hit.cu``): per ray, every cluster box is
@@ -18,8 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from nrdsample_tpu_torch import native
 from nrdsample_tpu_torch.ops import intersect
-from nrdsample_tpu_torch.scene.bvh import build_order
 from nrdsample_tpu_torch.scene.types import TriangleSoA, _to
 
 CLUSTER_SIZE = 128  # triangles per cluster: one thread block's tile in the packet kernel
@@ -62,7 +64,7 @@ def build_clusters(tris: TriangleSoA):
     p2 = p0 + e2
     tmin = np.minimum(np.minimum(p0, p1), p2)
     tmax = np.maximum(np.maximum(p0, p1), p2)
-    order = build_order(tmin, tmax, leaf_size=8)
+    order = native.build_order(tmin, tmax, leaf_size=8)
 
     t = len(p0)
     pad = (-t) % CLUSTER_SIZE

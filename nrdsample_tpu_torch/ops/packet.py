@@ -1,13 +1,20 @@
-"""Packet traversal on the card: stage 1 in PyTorch and the wrapper of
-``csrc/packet_hit.cu``, the port of the resident Pallas kernel
-``nrdsample_tpu/ops/packet.py:_packet_kernel`` (``closest_hit_packet``,
-``any_hit_packet``). The plain versions are ``ops/cluster.closest_hit_clustered``
-and ``any_hit_clustered``; ``ops/traversal`` picks by the rays' device.
+"""Packet traversal on the card: stage 1 in PyTorch and the wrappers of the
+two packet kernels, ``csrc/packet_hit.cu`` (the port of the resident Pallas
+kernel ``nrdsample_tpu/ops/packet.py:_packet_kernel``) and
+``csrc/packet_hit_stream.cu`` (the port of the HBM-streaming
+``_packet_kernel_stream``). The plain versions are
+``ops/cluster.closest_hit_clustered`` and ``any_hit_clustered``;
+``ops/traversal`` picks by the rays' device.
 
 Rays are grouped into 128-ray packets. Stage 1 gives each packet one cluster
-worklist: every cluster some ray of the packet enters, sorted by the
-packet's nearest entry distance. The kernel runs one thread block per packet
-and walks that list until the next entry is past every ray's best hit.
+worklist: every cluster some ray of the packet may enter, sorted by a lower
+bound of the packet's entry distance. Up to ``FLAT_WORKLIST_MAX_C`` clusters
+the bound is exact (every ray against every cluster box); above, it is
+hierarchical (exact per-ray entries into the 8-cluster superclusters, refined
+by a per-packet interval test of each cluster), as in the JAX package. The
+kernel runs one thread block per packet and walks that list until the next
+entry is past every ray's best hit. The streaming kernel takes slabs larger
+than ``PACKET_VMEM_LIMIT``, the JAX package's rule.
 """
 
 from __future__ import annotations
@@ -15,15 +22,23 @@ from __future__ import annotations
 import torch
 
 from nrdsample_tpu_torch.ops import _kernels
-from nrdsample_tpu_torch.ops.cluster import T_MAX, ClusterSet, _cluster_entry
+from nrdsample_tpu_torch.ops.cluster import (CLUSTER_SIZE, SUPER_SIZE, T_MAX, ClusterSet,
+                                             _cluster_entry)
 
 BLOCK_RAYS = 128            # rays per packet: one thread per ray
-FLAT_WORKLIST_MAX_C = 2048  # above this the JAX package's stage 1 is hierarchical
+FLAT_WORKLIST_MAX_C = 2048  # above this stage 1 is hierarchical (superclusters)
+#: slab bytes above which the streaming kernel runs (the JAX package's
+#: traversal.PACKET_VMEM_LIMIT; the H100's L2 holds 50 MB)
+PACKET_VMEM_LIMIT = 48 << 20
 _CID_BITS = 14              # cluster-id bits in the packed sort key
+MAX_CLUSTERS = (1 << _CID_BITS) - 1
 _STAGE1_BYTES = 64 << 20    # bytes of one (rays, C) entry matrix chunk
+_STAGE1_SUPER_ENTRIES = 1 << 24   # (packets, C) entries of one hierarchical stage-1 chunk
 
-#: launches of the packet kernel (incremented once per launch)
+#: launches of the resident packet kernel (incremented once per launch)
 LAUNCHES = 0
+#: launches of the streaming packet kernel
+STREAM_LAUNCHES = 0
 
 
 def _sort_worklists(key, hit):
@@ -62,6 +77,80 @@ def _block_worklists(origin, direction, cs: ClusterSet, t_max, block: int = BLOC
     return _sort_worklists(torch.where(hit, block_near, T_MAX), hit)
 
 
+def _block_worklists_interval_parts(origin, direction, cs: ClusterSet, t_max,
+                                    block: int = BLOCK_RAYS):
+    """Per-packet interval test of every cluster box: (hit (nb, C) bool,
+    lower bound of the entry distance (nb, C)). The packet's origins and
+    directions are bounded per axis; an axis whose direction interval spans
+    zero bounds nothing."""
+    nb = origin.shape[0] // block
+    ob = origin.reshape(nb, block, 3)
+    db = direction.reshape(nb, block, 3)
+    o_lo, o_hi = ob.amin(dim=1), ob.amax(dim=1)      # (nb, 3)
+    d_lo, d_hi = db.amin(dim=1), db.amax(dim=1)
+    t_cap = t_max.reshape(nb, block).amax(dim=1)     # (nb,)
+    big = T_MAX
+    c = cs.count
+    tnear_lb = torch.zeros((nb, c), dtype=torch.float32, device=origin.device)
+    tfar_ub = torch.full((nb, c), T_MAX, dtype=torch.float32, device=origin.device)
+    for k in range(3):
+        bmin = cs.bounds_min[None, :, k]              # (1, C)
+        bmax = cs.bounds_max[None, :, k]
+        a_lo = bmin - o_hi[:, k:k + 1]                # interval of (b - o)
+        a_hi = bmax - o_lo[:, k:k + 1]
+        dl, dh = d_lo[:, k:k + 1], d_hi[:, k:k + 1]
+        same_sign = (dl > 1e-12) | (dh < -1e-12)      # (nb, 1)
+        i_lo = 1.0 / torch.where(torch.abs(dh) < 1e-12, 1e-12, dh)
+        i_hi = 1.0 / torch.where(torch.abs(dl) < 1e-12, 1e-12, dl)
+        p1, p2, p3, p4 = a_lo * i_lo, a_lo * i_hi, a_hi * i_lo, a_hi * i_hi
+        lo_k = torch.where(same_sign, torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4)),
+                           -big)
+        hi_k = torch.where(same_sign, torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4)),
+                           big)
+        tnear_lb = torch.maximum(tnear_lb, lo_k)
+        tfar_ub = torch.minimum(tfar_ub, hi_k)
+    hit = (tnear_lb <= tfar_ub) & (tnear_lb < t_cap[:, None])
+    return hit, torch.clamp_min(tnear_lb, 0.0)
+
+
+def _block_worklists_super(origin, direction, cs: ClusterSet, t_max, block: int = BLOCK_RAYS):
+    """Hierarchical stage 1 for more than FLAT_WORKLIST_MAX_C clusters: the
+    exact per-ray entry into each supercluster (8 clusters), minimised over
+    the packet, and the per-packet interval test of each cluster. A cluster
+    is listed where both hit, keyed by the larger of the two lower bounds.
+    Chunked over packets so that the (packets, C) intermediates stay near
+    64 MB each. Returns (order, keys) as ``_block_worklists``."""
+    c = cs.count
+    nb = origin.shape[0] // block
+    chunk = max(1, _STAGE1_SUPER_ENTRIES // c) * block
+    orders, keys = [], []
+    for a in range(0, nb * block, chunk):
+        o, d, tm = origin[a:a + chunk], direction[a:a + chunk], t_max[a:a + chunk]
+        near_s = _block_min_entry(o, d, cs.super_min, cs.super_max, tm, block)   # (nb', Cs)
+        super_key = torch.repeat_interleave(near_s, SUPER_SIZE, dim=1)[:, :c]
+        hit_i, lb_i = _block_worklists_interval_parts(o, d, cs, tm, block)
+        hit = (super_key < T_MAX) & hit_i
+        order_c, keys_c = _sort_worklists(torch.where(hit, torch.maximum(super_key, lb_i), T_MAX),
+                                          hit)
+        orders.append(order_c)
+        keys.append(keys_c)
+    return torch.cat(orders), torch.cat(keys)
+
+
+def vmem_table_bytes(cs: ClusterSet) -> int:
+    """Bytes of the cluster slab: what the JAX package holds against
+    PACKET_VMEM_LIMIT to pick the streaming kernel."""
+    return int(cs.slab.shape[0]) * CLUSTER_SIZE * 4
+
+
+def worklists(origin, direction, cs: ClusterSet, t_max, block: int = BLOCK_RAYS):
+    """Stage 1 as the JAX package picks it: flat up to FLAT_WORKLIST_MAX_C
+    clusters, hierarchical above."""
+    if cs.count <= FLAT_WORKLIST_MAX_C:
+        return _block_worklists(origin, direction, cs, t_max, block)
+    return _block_worklists_super(origin, direction, cs, t_max, block)
+
+
 def _morton_sort_keys(origin, direction, cs: ClusterSet):
     """Ray-coherence key: direction octant (high bits) + 10-bit-per-axis
     morton code of the origin within the scene bounds. The JAX package's
@@ -85,27 +174,33 @@ def _morton_sort_keys(origin, direction, cs: ClusterSet):
 
 
 def closest_hit_packet_cuda(cs: ClusterSet, origin, direction, t_max=T_MAX, sort: bool = False,
-                            any_hit: bool = False) -> dict:
-    """Launch the packet kernel on CUDA rays: dict(t, u, v, tri), t = t_max
-    and tri = -1 on a miss. ``sort`` re-bins the rays by direction octant and
+                            any_hit: bool = False, stream: bool | None = None,
+                            need_uv: bool = True) -> dict:
+    """Launch a packet kernel on CUDA rays: dict(t, u, v, tri), t = t_max and
+    tri = -1 on a miss. ``sort`` re-bins the rays by direction octant and
     origin morton code first (divergent bounce and shadow waves) and puts the
     results back in the callers' order. ``any_hit`` lets a packet stop once
     every ray is blocked inside its t_max; a blocked ray then reports some
-    blocker, not the closest."""
+    blocker, not the closest. ``stream`` picks the streaming kernel (True),
+    the resident one (False) or, with None, the streaming one when the slab
+    is larger than PACKET_VMEM_LIMIT. ``need_uv=False`` lets the streaming
+    kernel skip u/v (returned as zeros); the resident kernel always tracks
+    them."""
     dev = origin.device
     if dev.type != "cuda":
         raise ValueError(f"closest_hit_packet_cuda needs CUDA tensors, got {dev}")
     c = cs.count
-    if c > FLAT_WORKLIST_MAX_C:
-        raise NotImplementedError(
-            f"{c} clusters > {FLAT_WORKLIST_MAX_C}: the supercluster stage 1 and the streaming "
-            "packet kernel are ported in slice 4 (exterior720)")
+    if c > MAX_CLUSTERS:
+        raise ValueError(f"{c} clusters > {MAX_CLUSTERS}: the packed worklist sort key holds "
+                         f"{_CID_BITS} bits of cluster id")
+    if stream is None:
+        stream = vmem_table_bytes(cs) > PACKET_VMEM_LIMIT
     r = origin.shape[0]
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(r)
     if sort:
         perm = torch.sort(_morton_sort_keys(origin, direction, cs), stable=True).indices
         res = closest_hit_packet_cuda(cs, origin[perm], direction[perm], t_max[perm],
-                                      any_hit=any_hit)
+                                      any_hit=any_hit, stream=stream, need_uv=need_uv)
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(r, device=dev)
         return {k: v[inv] for k, v in res.items()}
@@ -115,21 +210,27 @@ def closest_hit_packet_cuda(cs: ClusterSet, origin, direction, t_max=T_MAX, sort
         origin = torch.cat([origin, origin.new_zeros((pad, 3))])
         direction = torch.cat([direction, origin.new_tensor([0.0, 0.0, 1.0]).expand(pad, 3)])
         t_max = torch.cat([t_max, t_max.new_zeros(pad)])
-    order, keys = _block_worklists(origin, direction, cs, t_max.contiguous())
-    res = launch(cs, origin, direction, t_max.contiguous(), order, keys, any_hit)
+    t_max = t_max.contiguous()
+    order, keys = worklists(origin, direction, cs, t_max)
+    if stream:
+        res = launch_stream(cs, origin, direction, t_max, order, keys, any_hit, need_uv)
+    else:
+        res = launch(cs, origin, direction, t_max, order, keys, any_hit)
     return {k: v[:r] for k, v in res.items()}
 
 
-def launch(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit: bool = False) -> dict:
-    """The kernel alone: (R, 3) rays with R a multiple of 128, (R,) t_max,
-    and stage 1's (R / 128, C) worklists, all contiguous on one CUDA
-    device. Returns dict(t, u, v, tri) of (R,) tensors."""
-    global LAUNCHES
+def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, *flags) -> dict:
+    """Check the inputs of a packet kernel and launch it: (R, 3) rays with R
+    a multiple of 128, (R,) t_max and stage 1's (R / 128, C) worklists, all
+    contiguous on one CUDA device. Returns dict(t, u, v, tri) of (R,)
+    tensors."""
     dev = origin.device
+    if dev.type != "cuda":
+        raise ValueError(f"{symbol} needs CUDA tensors, got {dev}")
     f32 = torch.float32
     r, c = origin.shape[0], cs.count
     if r % BLOCK_RAYS:
-        raise ValueError(f"{r} rays: the packet kernel takes whole packets of {BLOCK_RAYS}")
+        raise ValueError(f"{r} rays: the packet kernels take whole packets of {BLOCK_RAYS}")
     check = _kernels.check_tensor
     check("origin", origin, f32, (r, 3), dev)
     check("direction", direction, f32, (r, 3), dev)
@@ -144,10 +245,29 @@ def launch(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit: bool 
     lib = _kernels.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nrd_packet_hit(origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-                                order.data_ptr(), keys.data_ptr(), cs.slab.data_ptr(), c,
-                                r // BLOCK_RAYS, int(any_hit), t.data_ptr(), u.data_ptr(),
-                                v.data_ptr(), tri.data_ptr(), stream)
-    _kernels.check(rc, "nrd_packet_hit")
-    LAUNCHES += 1
+        rc = getattr(lib, symbol)(origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
+                                  order.data_ptr(), keys.data_ptr(), cs.slab.data_ptr(), c,
+                                  r // BLOCK_RAYS, *flags, t.data_ptr(), u.data_ptr(),
+                                  v.data_ptr(), tri.data_ptr(), stream)
+    _kernels.check(rc, symbol)
     return {"t": t, "u": u, "v": v, "tri": tri}
+
+
+def launch(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit: bool = False) -> dict:
+    """The resident kernel (``csrc/packet_hit.cu``) alone on stage 1's
+    worklists; see ``_launch`` for the inputs."""
+    global LAUNCHES
+    res = _launch("nrd_packet_hit", cs, origin, direction, t_max, order, keys, int(any_hit))
+    LAUNCHES += 1
+    return res
+
+
+def launch_stream(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit: bool = False,
+                  need_uv: bool = True) -> dict:
+    """The streaming kernel (``csrc/packet_hit_stream.cu``) alone on stage 1's
+    worklists; see ``_launch`` for the inputs."""
+    global STREAM_LAUNCHES
+    res = _launch("nrd_packet_hit_stream", cs, origin, direction, t_max, order, keys,
+                  int(any_hit), int(need_uv))
+    STREAM_LAUNCHES += 1
+    return res

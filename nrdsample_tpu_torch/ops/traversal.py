@@ -1,10 +1,13 @@
 """Trace dispatch (counterpart of ``nrdsample_tpu/ops/traversal.py``).
 
-Scenes of at most ``DENSE_CUTOFF`` triangles are traced by brute force
-("dense"); larger ones in "cluster" mode, over 128-triangle clusters in BVH
-order. Each query picks its path by the device of the rays: a CUDA tensor
-launches the kernel (the dense hit kernel or the packet kernel) or raises, a
-CPU tensor takes the kernel's plain version. Hit results carry no gradient.
+Triangle ranges of at most ``DENSE_CUTOFF`` triangles are traced by brute
+force ("dense"); larger ones in "cluster" mode, over 128-triangle clusters in
+BVH order. A scene with glass gets two contexts (``build_scene_contexts``):
+the opaque and the transparent range of one merged scene. Each query picks
+its path by the device of the rays: a CUDA tensor launches a kernel (the
+dense hit kernel, or a packet kernel: the streaming one for slabs larger than
+``packet.PACKET_VMEM_LIMIT``) or raises, a CPU tensor takes the kernel's
+plain version. Hit results carry no gradient.
 """
 
 from __future__ import annotations
@@ -16,52 +19,76 @@ import torch
 
 from nrdsample_tpu_torch import config as cfgmod
 from nrdsample_tpu_torch.device import resolve
-from nrdsample_tpu_torch.ops import cluster, dense_cuda, emissive_probe, intersect, packet
+from nrdsample_tpu_torch.ops import cluster, dense_cuda, intersect, packet
 
 T_MAX = intersect.T_MAX
 DENSE_CUTOFF = dense_cuda.MAX_TRIS
-DENSE_EMISSIVE_MAX = emissive_probe.MAX_TRIS
-MAX_CLUSTERS = packet.FLAT_WORKLIST_MAX_C
 
 
 class TraceContext:
-    """Acceleration data for a scene. ``mode`` is "dense" or "cluster";
-    cluster mode carries the ``ClusterSet`` and the triangle permutation
-    ``order`` (order[new] = old)."""
+    """Acceleration data for one triangle range. ``mode`` is "dense" or
+    "cluster"; cluster mode carries the ``ClusterSet`` and the triangle
+    permutation ``order`` (order[new] = old). ``tri_offset`` is the range's
+    first index in the merged scene (hit indices are returned in the merged
+    scene's numbering); ``emissive`` is the emissive cluster set of
+    ``render/emissive_is.build_emissive_clusters`` (None for small emitter
+    sets and off the card)."""
 
-    def __init__(self, tris, mode: str, clusters=None, order=None):
+    def __init__(self, tris, mode: str, clusters=None, order=None, tri_offset: int = 0,
+                 emissive=None):
         self.tris = tris
         self.mode = mode
         self.clusters = clusters
         self.order = order
+        self.tri_offset = tri_offset
+        self.emissive = emissive
 
 
-def check_scene_supported(scene, mode: str) -> None:
+class SceneContexts:
+    """The opaque and the transparent context over one merged scene: the
+    world's two instance masks (FLAG_NON_TRANSPARENT, FLAG_TRANSPARENT).
+    ``transparent`` is None for a scene without glass."""
+
+    def __init__(self, opaque: TraceContext, transparent: TraceContext | None):
+        self.opaque = opaque
+        self.transparent = transparent
+
+
+def check_scene_supported(scene, mode: str | None) -> None:
     """Raise NotImplementedError for scenes the port does not trace yet."""
     n = scene.tris.count
     if mode == "dense" and n > DENSE_CUTOFF:
         raise NotImplementedError(
             f"{n} triangles > DENSE_CUTOFF={DENSE_CUTOFF}: the dense hit kernel takes at most "
             f"{DENSE_CUTOFF}; use cluster mode")
-    if mode == "cluster" and -(-n // cluster.CLUSTER_SIZE) > MAX_CLUSTERS:
-        raise NotImplementedError(
-            f"{n} triangles make more than {MAX_CLUSTERS} clusters: the supercluster stage 1 "
-            "and the streaming packet kernel are ported in slice 4 (exterior720)")
-    n_em = scene.emissive_tris.shape[0]
-    if n_em > DENSE_EMISSIVE_MAX:
-        raise NotImplementedError(
-            f"an emissive set of {n_em} > {DENSE_EMISSIVE_MAX}: the emissive cluster probe "
-            "is ported in slice 5 (interior1440)")
     if scene.textures is not None:
-        raise NotImplementedError("textured materials are ported in slice 3 (kitchen1080)")
+        raise NotImplementedError("textured materials are not ported yet (glTF scenes)")
     if scene.has_alpha_test:
-        raise NotImplementedError("alpha-tested materials are ported in slice 4 (exterior720)")
+        raise NotImplementedError("alpha-tested materials are not ported yet (glTF scenes)")
     if scene.tri_instance is not None or scene.instance_scales is not None:
-        raise NotImplementedError("instance material scales are ported in slice 4 (exterior720)")
-    flags = scene.materials.flags[scene.tris.material.long()]
-    if bool(((flags & cfgmod.FLAG_TRANSPARENT) != 0).any()):
-        raise NotImplementedError(
-            "transparent triangles (TraceTransparent) are ported in slice 4 (exterior720)")
+        raise NotImplementedError("instance material scales are not ported yet (animated "
+                                  "instances, off the bench path)")
+
+
+def _tris_context(tris, mode: str | None, device):
+    """(TraceContext, tris') of a bare TriangleSoA on ``device``; in cluster
+    mode tris' is reordered and padded."""
+    if mode is None:
+        mode = "dense" if tris.count <= DENSE_CUTOFF else "cluster"
+    if mode not in ("dense", "cluster"):
+        raise NotImplementedError(f"traversal mode {mode!r} is not ported")
+    if mode == "dense":
+        tris = tris.to(device)
+        return TraceContext(tris, "dense"), tris
+    cs, tris_p, order = cluster.build_clusters(tris)
+    tris_p = tris_p.to(device)
+    return TraceContext(tris_p, "cluster", clusters=cs.to(device), order=order), tris_p
+
+
+def _remap_emissive(scene, old_to_new: np.ndarray) -> torch.Tensor:
+    em = scene.emissive_tris.cpu().numpy()
+    return torch.from_numpy(
+        np.where(em >= 0, old_to_new[np.clip(em, 0, len(old_to_new) - 1)], -1).astype(np.int32))
 
 
 def build_context(scene, mode: str | None = None, device=None):
@@ -69,30 +96,71 @@ def build_context(scene, mode: str | None = None, device=None):
     when None). ``mode`` None picks "dense" up to DENSE_CUTOFF triangles and
     "cluster" above. In cluster mode scene' has its triangles reordered and
     padded (hit indices decode against it) and its emissive list remapped
-    through the permutation; always use scene' with this context."""
+    through the permutation; always use scene' with this context. Every
+    triangle is in the one context, glass included: ``build_scene_contexts``
+    splits off the transparent ones."""
+    from nrdsample_tpu_torch.render import emissive_is
+
     device = resolve(device)
-    if mode is None:
-        mode = "dense" if scene.tris.count <= DENSE_CUTOFF else "cluster"
-    if mode not in ("dense", "cluster"):
-        raise NotImplementedError(f"traversal mode {mode!r} is not ported")
     check_scene_supported(scene, mode)
-    if mode == "dense":
-        scene = scene.to(device)
-        return TraceContext(scene.tris, "dense"), scene
-    cs, tris_p, order = cluster.build_clusters(scene.tris)
-    inv = np.empty(len(order), np.int32)
-    inv[order] = np.arange(len(order), dtype=np.int32)
-    em = scene.emissive_tris.cpu().numpy()
-    em_new = np.where(em >= 0, inv[np.clip(em, 0, len(order) - 1)], -1).astype(np.int32)
-    scene = dataclasses.replace(scene, tris=tris_p, emissive_tris=torch.from_numpy(em_new))
-    scene = scene.to(device)
-    return TraceContext(scene.tris, "cluster", clusters=cs.to(device), order=order), scene
+    ctx, tris = _tris_context(scene.tris, mode, device)
+    ctx.emissive = emissive_is.build_emissive_clusters(scene, device)
+    if ctx.mode == "dense":
+        return ctx, scene.to(device)
+    inv = np.empty(len(ctx.order), np.int32)
+    inv[ctx.order] = np.arange(len(ctx.order), dtype=np.int32)
+    scene = dataclasses.replace(scene, tris=tris, emissive_tris=_remap_emissive(scene, inv))
+    return ctx, scene.to(device)
+
+
+def build_scene_contexts(scene, mode: str | None = None, device=None):
+    """Split the scene into its opaque and transparent triangles, build a
+    context for each (``mode`` None picks dense or cluster per range) and
+    return (SceneContexts, merged scene') on ``device``: scene' holds the
+    opaque range (reordered, padded) then the transparent one, the emissive
+    list remapped, as the JAX package's ``build_scene_contexts`` builds it.
+    A scene without glass gets ``build_context``'s context and no
+    transparent one."""
+    from nrdsample_tpu_torch.render import emissive_is
+
+    device = resolve(device)
+    check_scene_supported(scene, mode)
+    flags = scene.materials.flags.cpu().numpy()[scene.tris.material.cpu().numpy()]
+    is_trans = (flags & cfgmod.FLAG_TRANSPARENT) != 0
+    if not is_trans.any():
+        ctx, scene2 = build_context(scene, mode, device)
+        return SceneContexts(ctx, None), scene2
+    ids_o, ids_t = np.nonzero(~is_trans)[0], np.nonzero(is_trans)[0]
+
+    def gather(ids):
+        idx = torch.from_numpy(ids.astype(np.int64))
+        return type(scene.tris)(**{f.name: getattr(scene.tris, f.name).cpu()[idx]
+                                   for f in dataclasses.fields(scene.tris)})
+
+    ctx_o, tris_o = _tris_context(gather(ids_o), mode, device)
+    ctx_t, tris_t = _tris_context(gather(ids_t), mode, device)
+    offset = tris_o.count
+    ctx_t.tri_offset = offset
+    merged = type(tris_o)(**{f.name: torch.cat([getattr(tris_o, f.name), getattr(tris_t, f.name)])
+                             for f in dataclasses.fields(tris_o)})
+    # old scene index -> merged index, through both ranges' permutations
+    if ctx_o.order is not None:
+        ids_o = ids_o[ctx_o.order]
+    if ctx_t.order is not None:
+        ids_t = ids_t[ctx_t.order]
+    old_to_new = np.full(scene.tris.count, -1, np.int64)
+    old_to_new[ids_o] = np.arange(len(ids_o))
+    old_to_new[ids_t] = offset + np.arange(len(ids_t))
+    ctx_o.emissive = emissive_is.build_emissive_clusters(scene, device)
+    scene2 = dataclasses.replace(scene, tris=merged, emissive_tris=_remap_emissive(scene, old_to_new))
+    return SceneContexts(ctx_o, ctx_t), scene2.to(device)
 
 
 def closest_hit(ctx: TraceContext, origin, direction, t_max=T_MAX, coherent: bool = True) -> dict:
     """Closest hit of each ray: dict(t, u, v, tri), t = t_max and tri = -1 on
-    a miss. ``coherent=False`` (divergent bounce and shadow waves) re-bins the
-    rays into coherent packets on the packet path."""
+    a miss, tri in the merged scene's numbering (``ctx.tri_offset``).
+    ``coherent=False`` (divergent bounce and shadow waves) re-bins the rays
+    into coherent packets on the packet path."""
     tr = ctx.tris
     origin, direction = origin.detach().contiguous(), direction.detach().contiguous()
     dev = origin.device.type
@@ -100,12 +168,17 @@ def closest_hit(ctx: TraceContext, origin, direction, t_max=T_MAX, coherent: boo
         raise ValueError(f"no hit path for device {origin.device}")
     if ctx.mode == "dense":
         if dev == "cuda":
-            return dense_cuda.closest_hit_dense_cuda(tr.p0, tr.e1, tr.e2, origin, direction, t_max)
-        return intersect.intersect_dense(origin, direction, tr.p0, tr.e1, tr.e2, t_max)
-    if dev == "cuda":
-        return packet.closest_hit_packet_cuda(ctx.clusters, origin, direction, t_max,
-                                              sort=not coherent)
-    return cluster.closest_hit_clustered(ctx.clusters, origin, direction, t_max)
+            res = dense_cuda.closest_hit_dense_cuda(tr.p0, tr.e1, tr.e2, origin, direction, t_max)
+        else:
+            res = intersect.intersect_dense(origin, direction, tr.p0, tr.e1, tr.e2, t_max)
+    elif dev == "cuda":
+        res = packet.closest_hit_packet_cuda(ctx.clusters, origin, direction, t_max,
+                                             sort=not coherent)
+    else:
+        res = cluster.closest_hit_clustered(ctx.clusters, origin, direction, t_max)
+    if ctx.tri_offset:
+        res = dict(res, tri=torch.where(res["tri"] >= 0, res["tri"] + ctx.tri_offset, -1))
+    return res
 
 
 def closest_hit_alpha(ctx: TraceContext, scene, origin, direction, t_max=T_MAX,
@@ -113,7 +186,7 @@ def closest_hit_alpha(ctx: TraceContext, scene, origin, direction, t_max=T_MAX,
     """Closest hit with the alpha test; scenes of this port carry no
     alpha-tested material, so this is ``closest_hit``."""
     if getattr(scene, "has_alpha_test", False) and scene.textures is not None:
-        raise NotImplementedError("alpha-tested materials are ported in slice 4 (exterior720)")
+        raise NotImplementedError("alpha-tested materials are not ported yet (glTF scenes)")
     return closest_hit(ctx, origin, direction, t_max, coherent=coherent)
 
 
@@ -137,7 +210,7 @@ def any_hit(ctx: TraceContext, origin, direction, t_max, coherent: bool = False)
     t_max_arr = t_max_arr.expand(origin.shape[:1]).contiguous()
     if origin.device.type == "cuda":
         res = packet.closest_hit_packet_cuda(ctx.clusters, origin, direction, t_max_arr,
-                                             sort=not coherent, any_hit=True)
+                                             sort=not coherent, any_hit=True, need_uv=False)
         return (res["tri"] >= 0) & (res["t"] < t_max_arr)
     if origin.device.type == "cpu":
         return cluster.any_hit_clustered(ctx.clusters, origin, direction, t_max_arr)

@@ -1,4 +1,4 @@
-"""The configurations of the JAX package's bench ladder (``bench.py:61-85``)
+"""The configurations of the JAX package's bench ladder (``bench.py:61-96``)
 that the port renders. ``setup`` builds one on a device."""
 
 from __future__ import annotations
@@ -28,29 +28,49 @@ CONFIGS = {
         cfg=dict(width=1920, height=1080, rpp=1, bounce_num=1, denoiser=Denoiser.RELAX,
                  nrd_mode=NrdMode.SH, use_taa=True, use_sharc=True, use_confidence=True),
         settings=dict(sun_elevation=35.0)),
+    # bench.py:86-96: a street block of 1,058,884 triangles (8,263 opaque
+    # clusters: the supercluster stage 1 and the streaming packet kernel),
+    # glass windows (the transparent context, shadow translucency and the
+    # delta chains), 4,034 emitters (the emissive cluster probe), RELAX +
+    # SIGMA, TAA and SHARC with its FULL through-glass pass
+    "exterior720": dict(
+        scene=lambda **kw: procedural.exterior(**{"cobbles": 120, "tree_count": 450,
+                                                  "tree_res": 28, **kw}),
+        cam=([0.0, -45.0, 6.0], [0.0, 0.0, 4.0], 55.0),
+        cfg=dict(width=1280, height=720, rpp=1, bounce_num=1, denoiser=Denoiser.RELAX,
+                 use_sharc=True, use_taa=True),
+        settings=dict(sun_elevation=30.0), glass=True),
 }
 
 
-def setup(name: str, device=None, **cfg_overrides):
+def setup(name: str, device=None, scene_kw: dict | None = None, **cfg_overrides):
     """(ctx, scene, cam, cfg, settings) of configuration ``name`` on
-    ``device`` (the CUDA card when None); ``cfg_overrides`` replace
-    RenderConfig fields (a smaller size, say)."""
+    ``device`` (the CUDA card when None); ``scene_kw`` replaces arguments of
+    the scene builder (a smaller scene), ``cfg_overrides`` RenderConfig
+    fields (a smaller size, say). A configuration with glass gets the
+    SceneContexts of ``build_scene_contexts``."""
     spec = CONFIGS[name]
     kw = dict(spec["cfg"], tracing_mode=TracingMode.FULL_PROBABILISTIC)
     kw.update(cfg_overrides)
     cfg = RenderConfig(**kw)
-    ctx, scene = traversal.build_context(spec["scene"](), device=device)
+    build = traversal.build_scene_contexts if spec.get("glass") else traversal.build_context
+    ctx, scene = build(spec["scene"](**(scene_kw or {})), device=device)
     eye, target, fov = spec["cam"]
     cam = look_at(eye, target, fov_y_deg=fov, aspect=cfg.width / cfg.height, device=device)
     return ctx, scene, cam, cfg, make_settings(device, **spec["settings"])
 
 
-def rays_per_pixel(cfg: RenderConfig) -> float:
+def rays_per_pixel(cfg: RenderConfig, has_glass: bool = False) -> float:
     """Rays traced per pixel per frame, as ``bench.py:count_rays_per_pixel``
     counts them: primary + primary shadow + rpp x bounces x (bounce +
     shadow), plus with SHARC the probe rays at 1/ds^2 rate (primary +
-    propagation depth x (bounce + shadow))."""
+    propagation depth x (bounce + shadow)), plus with glass the translucency
+    march, the transparent recast, 2 chains x delta bounces and the chains'
+    end shadow (16.36 for exterior720). Emissive-probe rays are not
+    counted."""
     rays = 2.0 + cfg.rpp * cfg.bounce_num * 2.0
     if cfg.use_sharc:
         rays += (1.0 + 2.0 * cfgmod.SHARC_PROPAGATION_DEPTH) / cfg.sharc_downscale ** 2
+    if has_glass:
+        rays += 1.0 + 1.0 + 2.0 * cfg.delta_bounce_num + 2.0
     return rays

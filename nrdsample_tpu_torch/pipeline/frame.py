@@ -6,11 +6,14 @@
 Three denoiser paths are ported: REFERENCE accumulation, and REBLUR or RELAX
 with SIGMA for the sun shadow; with them the SHARC radiance cache and its
 history-confidence plane, the SH resolve and TAA. The trace runs the SHARC
-update pass before the opaque trace. The image work runs as
+update pass before the opaque trace; with glass (a ``SceneContexts`` with a
+transparent context) it then marches the sun-shadow rays through the glass
+layers and traces the glass delta chains. The image work runs as
 ``image_frame_begin`` (history confidence, hit-distance reconstruction,
 SIGMA, RELAX, REBLUR temporal accumulation) then ``image_frame_finish``
-(REBLUR blur and stabilization, SH resolve and composition, REFERENCE, TAA,
-history assembly), with every history gather inline.
+(REBLUR blur and stabilization, SH resolve and composition, the glass
+overlay, REFERENCE, TAA, history assembly), with every history gather
+inline.
 """
 
 from __future__ import annotations
@@ -25,9 +28,9 @@ from nrdsample_tpu_torch.config import Denoiser, NrdMode, RenderConfig, Settings
 from nrdsample_tpu_torch.denoise import (checkerboard, common, composition, confidence, reblur,
                                          reference, relax, sh, sigma, taa)
 from nrdsample_tpu_torch.device import resolve
-from nrdsample_tpu_torch.mathlib import geometry as geo
+from nrdsample_tpu_torch.mathlib import color, geometry as geo
 from nrdsample_tpu_torch.ops import sharc, traversal
-from nrdsample_tpu_torch.render import sharc_update, trace_opaque
+from nrdsample_tpu_torch.render import sharc_update, trace_opaque, trace_transparent
 from nrdsample_tpu_torch.scene import camera as cam_mod
 from nrdsample_tpu_torch.scene.types import Camera, Scene
 
@@ -78,20 +81,80 @@ class History:
         return History(**kw)
 
 
-def trace_frame(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
-                cfg: RenderConfig, settings: Settings, history: History,
-                pixel_idx=None):
-    """Phase 1 — the SHARC update pass, then the opaque trace. Returns
-    (gb, aux): per-pixel planes and the pixel-independent outputs
-    {"sharc": the updated cache, "probes": the probe planes}."""
+def _shadow_translucency_march(tctx: traversal.TraceContext, scene: Scene, cfg: RenderConfig,
+                               sxo: torch.Tensor, sdir: torch.Tensor):
+    """March the sun-shadow rays through up to PT_SHADOW_GLASS_LAYERS glass
+    layers of the transparent context (opaque blockers are in the binary
+    shadow already). Each layer multiplies the translucency by lerp(0.9, 0,
+    (1 - NoV)^2.5) and by the glass tint; the march stops once the
+    translucency's luminance is at most 0.01. Returns (translucency (N, 3),
+    distance to the first glass layer (N,), 0 where none)."""
+    n_px = sxo.shape[0]
+    f32, dev = cfg.dtype, sxo.device
+    trans = torch.ones((n_px, 3), dtype=f32, device=dev)
+    first_t = torch.zeros((n_px,), dtype=f32, device=dev)
+    dist = torch.zeros((n_px,), dtype=f32, device=dev)   # distance marched so far
+    o = sxo
+    active = torch.ones((n_px,), dtype=torch.bool, device=dev)
+    tr = tctx.tris
+    for _ in range(cfgmod.PT_SHADOW_GLASS_LAYERS):
+        hit = traversal.closest_hit(tctx, o, sdir)
+        found = (hit["tri"] >= 0) & active
+        tri_local = torch.clamp_min(hit["tri"] - tctx.tri_offset, 0).long()
+        n_geom = geo.normalize(geo.cross(tr.e1[tri_local], tr.e2[tri_local]))
+        p = torch.pow(torch.clamp(1.0 - torch.abs(geo.dot3(n_geom, sdir)), 0.0, 1.0), 2.5)
+        factor = 0.9 * (1.0 - p)
+        tint = scene.materials.base_color[tr.material[tri_local].long()]
+        trans = trans * torch.where(found[..., None], factor[..., None] * tint, 1.0)
+        t = torch.where(found, hit["t"], 0.0)
+        first_t = torch.where(found & (first_t == 0.0), dist + t, first_t)
+        dist = dist + t
+        # past the layer: hitT plus an epsilon
+        o = o + sdir * (t + 1e-3 * torch.where(found, 1.0, 0.0))[..., None]
+        active = found & (color.luminance(trans) > 0.01)
+    return trans, first_t
+
+
+def trace_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
+                history: History, pixel_idx=None):
+    """Phase 1 — the SHARC update pass, the opaque trace, and with glass the
+    shadow translucency march and the glass delta chains. ``ctx`` is a
+    TraceContext or a SceneContexts. Returns (gb, aux): per-pixel planes
+    (with glass: glass_color, glass_mask and the tinted shadow) and the
+    pixel-independent outputs {"sharc": the updated cache, "probes": the
+    probe planes}."""
+    ctxs = ctx if isinstance(ctx, traversal.SceneContexts) else traversal.SceneContexts(ctx, None)
     frame = history.frame_index
     sharc_state, probes = history.sharc, None
     if cfg.use_sharc and sharc_state is not None:
-        sharc_state, probes = sharc_update.sharc_update_pass(ctx, scene, cam, cfg, settings, frame,
+        sharc_state, probes = sharc_update.sharc_update_pass(ctxs, scene, cam, cfg, settings, frame,
                                                              sharc_state)
-    gb = trace_opaque.trace_opaque(ctx, scene, cam, cfg, settings, frame, pixel_idx,
+    gb = trace_opaque.trace_opaque(ctxs.opaque, scene, cam, cfg, settings, frame, pixel_idx,
                                    sharc_state if cfg.use_sharc else None)
-    gb.pop("shadow_ray")
+    shadow_ray = gb.pop("shadow_ray")
+
+    if ctxs.transparent is not None and cfg.use_translucency:
+        # the sun-shadow ray through the glass layers: the luminance of the
+        # translucency scales the shadow, its chroma tints it at composition,
+        # and the nearest layer joins SIGMA's penumbra distance as a blocker
+        trans_rgb, glass_t = _shadow_translucency_march(ctxs.transparent, scene, cfg, *shadow_ray)
+        off = settings.disable_shadows > 0
+        trans_rgb = torch.where(off, torch.ones_like(trans_rgb), trans_rgb)
+        lum = color.luminance(trans_rgb)
+        gb["shadow"] = gb["shadow"] * lum
+        tint = trans_rgb / torch.clamp_min(lum, 1e-6)[..., None]
+        gb["shadow_tint"] = torch.where((lum > 1e-6)[..., None], tint, torch.ones_like(tint))
+        hd = gb["shadow_hit_dist"]
+        glass_t = torch.where(off, 0.0, glass_t)
+        gb["shadow_hit_dist"] = torch.where(
+            glass_t > 0.0, torch.where(hd > 0.0, torch.minimum(hd, glass_t), glass_t), hd)
+
+    if ctxs.transparent is not None:
+        if pixel_idx is None:
+            pixel_idx = torch.arange(cfg.n_pixels, dtype=torch.int32, device=gb["view_z"].device)
+        gb["glass_color"], gb["glass_mask"] = trace_transparent.trace_transparent_color(
+            ctxs, scene, cam, cfg, settings, frame, gb, pixel_idx,
+            sharc_state if cfg.use_sharc else None)
     return gb, {"sharc": sharc_state, "probes": probes}
 
 
@@ -255,15 +318,20 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
             shadow)
     else:
         composed = composition.compose(gb, diff, spec, shadow)
+    glass_mask = gb.get("glass_mask")
+    if glass_mask is not None:
+        composed = torch.where(glass_mask[..., None], gb["glass_color"], composed)
     if cfg.denoiser == Denoiser.REFERENCE and history.reference is not None:
         composed, new_h["reference"] = reference.accumulate(history.reference, composed,
                                                             reset=reset_history)
 
     final, taa_wide_mask = composed, None
     if cfg.use_taa and history.taa is not None:
-        # TAA on the exposed image; sky and hair pixels take the wide (5x5)
-        # neighbourhood clamp
+        # TAA on the exposed image; sky, hair and glass pixels take the wide
+        # (5x5) neighbourhood clamp
         taa_wide_mask = gb["miss"] | ((gb["flags"] & cfgmod.FLAG_HAIR) > 0)
+        if glass_mask is not None:
+            taa_wide_mask = taa_wide_mask | glass_mask
         taa_out, new_h["taa"] = taa.apply(
             history.taa, img(composed * settings.exposure * 1e-2), img(gb["mv"]),
             img(gb["view_z"]), wide_mask=img(taa_wide_mask), reset=reset_history)
@@ -281,7 +349,7 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
         "diff_radiance": diff,
         "spec_radiance": spec,
         "gbuffer": gb,
-        "glass_mask": None,
+        "glass_mask": glass_mask,
         "taa_wide_mask": taa_wide_mask,
     }
     return outputs, History(**new_h)
@@ -305,10 +373,11 @@ def image_frame(cfg: RenderConfig, settings: Settings, cam: Camera,
     return image_frame_finish(cfg, settings, cam, history, gb, aux, mid, reset_history)
 
 
-def render_frame(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
-                 cfg: RenderConfig, settings: Settings, history: History,
-                 reset_history=False, pixel_idx=None):
-    """One frame: trace_frame then image_frame. Returns (outputs, history).
+def render_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
+                 history: History, reset_history=False, pixel_idx=None):
+    """One frame: trace_frame then image_frame. ``ctx`` is a TraceContext or,
+    for a scene with glass, the SceneContexts of ``build_scene_contexts``.
+    Returns (outputs, history).
     Each phase is a ``torch.profiler`` range of its own name, which
     ``profile_frame`` reads."""
     # dynamic camFov: 0 keeps the camera's own FoV

@@ -1,25 +1,67 @@
 """Emissive importance sampling — the light-BVH reservoir (counterpart of
-``nrdsample_tpu/render/emissive_is.py``, dense emitter sets only).
+``nrdsample_tpu/render/emissive_is.py``).
 
 Up to K = 16 BRDF-sampled candidate directions are probed against the
-emissive-only set in ONE batched launch (the probe kernel on the card); a
-weighted reservoir then picks one in proportion to the emissive intensity it
-would reach, and throughput is scaled by sum / (chosen * K), clamped to 8.
-(K, R) quantities travel as component planes, never as (K, R, 3).
+emissive-only set in ONE batched launch; a weighted reservoir then picks one
+in proportion to the emissive intensity it would reach, and throughput is
+scaled by sum / (chosen * K), clamped to 8. (K, R) quantities travel as
+component planes, never as (K, R, 3).
+
+The probe: on the card, sets of at most 512 emitters take the probe kernel,
+larger ones a closest hit against their own ClusterSet (the packet kernel;
+``build_emissive_clusters``, the JAX package's path on the TPU). On the CPU
+every set takes the plain dense probe, in chunks of rays.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from nrdsample_tpu_torch.mathlib import color, geometry as geo, rng, sampling
-from nrdsample_tpu_torch.ops import emissive_probe
-from nrdsample_tpu_torch.scene.types import Scene
+from nrdsample_tpu_torch.ops import cluster, emissive_probe, packet
+from nrdsample_tpu_torch.scene.types import Scene, TriangleSoA
+
+DENSE_EMISSIVE_MAX = emissive_probe.MAX_TRIS   # larger sets take the packet probe on the card
+_PROBE_CHUNK = 1 << 19                         # rays per plain-probe chunk
 
 
-def build_emissive_set(scene: Scene, emission_scale=1.0) -> dict:
+def emissive_cluster_set(scene: Scene):
+    """(ClusterSet, base luminance (T',)) of the scene's emissive triangles
+    on the host: the clusters of the emitters in BVH order, padded to whole
+    clusters, and the luminance of each reordered triangle's emission (0 for
+    padding)."""
+    ids = scene.emissive_tris.cpu().numpy()
+    idx = torch.from_numpy(ids[ids >= 0].astype(np.int64))
+    sub = TriangleSoA(**{f.name: getattr(scene.tris, f.name).cpu()[idx]
+                         for f in dataclasses.fields(TriangleSoA)})
+    cs, tris_p, order = cluster.build_clusters(sub)
+    em = scene.materials.emission.cpu().numpy()[sub.material.numpy()[order]]
+    lum = em @ np.asarray([0.2126, 0.7152, 0.0722], em.dtype)
+    lum = np.concatenate([lum, np.zeros(tris_p.count - len(lum), lum.dtype)])
+    return cs, torch.from_numpy(lum)
+
+
+def build_emissive_clusters(scene: Scene, device) -> dict | None:
+    """On a CUDA ``device``, for more than DENSE_EMISSIVE_MAX emitters: the
+    emissive ClusterSet (the merged-emissive acceleration structure of the
+    reference) and the base luminance of its triangles, for the packet
+    probe. None otherwise: the CPU probes every set densely, as the JAX
+    package does off the TPU. Once per scene."""
+    if (torch.device(device).type != "cuda"
+            or int((scene.emissive_tris >= 0).sum()) <= DENSE_EMISSIVE_MAX):
+        return None
+    cs, lum = emissive_cluster_set(scene)
+    return {"clusters": cs.to(device), "base_lum": lum.to(device)}
+
+
+def build_emissive_set(scene: Scene, emission_scale=1.0, clusters: dict | None = None) -> dict:
     """The padded emissive-triangle subset: p0/e1/e2 (E, 3) with zero rows
-    for padding, and intensity (E,) = luminance of the material emission."""
+    for padding, and intensity (E,) = luminance of the material emission.
+    With ``clusters`` (``build_emissive_clusters``) also the ClusterSet and
+    the luminance of its triangles, ``cl_lum``."""
     ids = scene.emissive_tris
     valid = ids >= 0
     safe = torch.clamp_min(ids, 0).long()
@@ -27,13 +69,17 @@ def build_emissive_set(scene: Scene, emission_scale=1.0) -> dict:
     mask = valid[:, None].to(tr.p0.dtype)
     mat = tr.material[safe].long()
     inten = color.luminance(scene.materials.emission[mat]) * emission_scale
-    return {
+    out = {
         "p0": tr.p0[safe] * mask,
         "e1": tr.e1[safe] * mask,
         "e2": tr.e2[safe] * mask,
         "intensity": torch.where(valid, inten, 0.0),
         "any": scene.emissive_count > 0,
     }
+    if clusters is not None:
+        out["clusters"] = clusters["clusters"]
+        out["cl_lum"] = clusters["base_lum"] * emission_scale
+    return out
 
 
 def light_probe(em: dict, origin: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
@@ -43,17 +89,27 @@ def light_probe(em: dict, origin: torch.Tensor, direction: torch.Tensor) -> torc
     if origin.device.type == "cuda":
         return emissive_probe.light_probe_cuda(em, origin, direction)
     if origin.device.type == "cpu":
-        return emissive_probe.light_probe_plain(em, origin, direction)
+        return torch.cat([emissive_probe.light_probe_plain(em, origin[a:a + _PROBE_CHUNK],
+                                                           direction[a:a + _PROBE_CHUNK])
+                          for a in range(0, origin.shape[0], _PROBE_CHUNK)])
     raise ValueError(f"no light probe path for device {origin.device}")
 
 
 def light_probe_batch(em: dict, origin: torch.Tensor, dir_planes, active: torch.Tensor) -> torch.Tensor:
     """All K candidates in one launch: origin (R, 3), dir_planes 3 x (K, R),
-    active (K, R) -> intensities (K, R)."""
+    active (K, R) -> intensities (K, R). With an emissive ClusterSet the
+    probe is a closest hit through the packet kernel (inactive candidates
+    trace too, and are masked after)."""
     dx, dy, dz = dir_planes
     k, r = dx.shape
     d_flat = torch.stack([dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)], dim=1)
     o_flat = origin[None].expand(k, r, 3).reshape(k * r, 3)
+    if "clusters" in em:
+        res = packet.closest_hit_packet_cuda(em["clusters"], o_flat, d_flat, sort=True,
+                                             need_uv=False)
+        hit = res["tri"] >= 0
+        li = torch.where(hit, em["cl_lum"][torch.clamp_min(res["tri"], 0).long()], 0.0)
+        return li.reshape(k, r) * active
     return light_probe(em, o_flat, d_flat).reshape(k, r) * active
 
 

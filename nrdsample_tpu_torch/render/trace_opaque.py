@@ -195,7 +195,8 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
     em_set = None
     n_cand = 1
     if cfg.use_importance_sampling and scene.has_emissive:
-        em_set = emissive_is.build_emissive_set(scene, settings.emission_intensity)
+        em_set = emissive_is.build_emissive_set(scene, settings.emission_intensity,
+                                                clusters=ctx.emissive)
         n_cand = cfg.importance_samples
 
     path_num = cfg.rpp * (2 if cfg.tracing_mode == TracingMode.FULL else 1)

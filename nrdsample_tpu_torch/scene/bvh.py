@@ -1,8 +1,9 @@
 """The triangle order of a binary binned-SAH BVH build on the host
-(counterpart of ``nrdsample_tpu/scene/bvh.py:_build_binary``):
-``ops/cluster.build_clusters`` cuts that order into 128-triangle clusters.
-Plain numpy, the same algorithm step for step, so the order equals the JAX
-package's.
+(counterpart of ``nrdsample_tpu/scene/bvh.py:_build_binary``): the plain
+numpy version of ``native/bvh_builder.cpp``, which ``ops/cluster.build_clusters``
+uses. The two agree on small scenes; on large ones float32 rounding in the
+C++ split sweep picks other splits, and the JAX package orders by the C++
+builder too.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Procedural test scenes (counterpart of ``nrdsample_tpu/scene/procedural.py``):
-the Cornell box, the shader balls and the kitchen, built with the same host
-numpy code so the arrays equal the JAX builders' exactly."""
+the Cornell box, the shader balls, the kitchen and the exterior street block,
+built with the same host numpy code (and the same ``RandomState`` draws) so
+the arrays equal the JAX builders' exactly."""
 
 from __future__ import annotations
 
@@ -260,3 +261,89 @@ def kitchen(light_intensity: float = 8.0) -> Scene:
     lv, li = _quad([-0.5, -0.3, 2.97], [-0.5, 0.3, 2.97], [0.5, 0.3, 2.97], [0.5, -0.3, 2.97])
     parts.append((lv, li, None, 3))
     return _assemble(parts, mats, max_emissive=8)
+
+
+def exterior(blocks: int = 4, window_grid: int = 6, cobbles: int = 60,
+             tree_count: int = 120, tree_res: int = 20, lamp_count: int = 24,
+             glass: bool = True, seed: int = 0) -> Scene:
+    """A street block (the bench ladder's exterior720 scene): a blocks x
+    blocks ring of buildings with glass window panes (FLAG_TRANSPARENT) on
+    their street-facing facades, a cobblestone street of jittered boxes, trees
+    (a trunk box and a canopy sphere with FLAG_LEAF, the triangle-count
+    carrier) and emissive street lamps plus one emissive sign. About 200k
+    triangles at the defaults; exterior(cobbles=120, tree_count=450,
+    tree_res=28) has 1,058,884."""
+    rs = np.random.RandomState(seed)
+    parts = []
+    m_ground, m_cobble, m_facade, m_roof, m_glass, m_leaf, m_trunk, m_lamp, m_sign = range(9)
+    extent = 60.0
+
+    gv, gi = make_plane([0, 0, 0], [extent * 2, extent * 2])
+    parts.append((gv, gi, None, m_ground))
+    for i in range(cobbles):
+        for j in range(cobbles):
+            x = (i / max(cobbles - 1, 1) - 0.5) * extent * 1.6
+            y = (j / max(cobbles - 1, 1) - 0.5) * extent * 1.6
+            s = 0.35 + 0.15 * rs.rand()
+            cv, ci = make_box([x + 0.3 * (rs.rand() - 0.5), y + 0.3 * (rs.rand() - 0.5),
+                               0.05 + 0.03 * rs.rand()], [s, s, 0.1])
+            parts.append((cv, ci, None, m_cobble))
+
+    for bi in range(blocks):
+        for bj in range(blocks):
+            if 0 < bi < blocks - 1 and 0 < bj < blocks - 1:
+                continue   # hollow block: the street in the middle
+            bx = (bi / max(blocks - 1, 1) - 0.5) * extent * 1.7
+            by = (bj / max(blocks - 1, 1) - 0.5) * extent * 1.7
+            w, d = 10.0 + 4.0 * rs.rand(), 8.0 + 4.0 * rs.rand()
+            h = 8.0 + 10.0 * rs.rand()
+            bv, bidx = make_box([bx, by, h / 2], [w, d, h])
+            parts.append((bv, bidx, None, m_facade))
+            rv, ri = make_box([bx, by, h + 0.3], [w * 1.08, d * 1.08, 0.6])
+            parts.append((rv, ri, None, m_roof))
+            if glass:
+                for ny in (-1.0, 1.0):
+                    fy = by + ny * (d / 2 + 0.02)
+                    rows = max(int(h / 2.5), 2)
+                    for wr in range(rows):
+                        for wc in range(window_grid):
+                            wx = bx + (wc / max(window_grid - 1, 1) - 0.5) * (w * 0.8)
+                            wz = 1.5 + wr * (h - 2.5) / max(rows - 1, 1)
+                            q = _quad([wx - 0.55, fy, wz - 0.7], [wx + 0.55, fy, wz - 0.7],
+                                      [wx + 0.55, fy, wz + 0.7], [wx - 0.55, fy, wz + 0.7])
+                            parts.append((q[0], q[1], None, m_glass))
+
+    for _ in range(tree_count):
+        tx = (rs.rand() - 0.5) * extent * 1.3
+        ty = (rs.rand() - 0.5) * extent * 1.3
+        th = 2.0 + 1.5 * rs.rand()
+        tv, ti = make_box([tx, ty, th / 2], [0.35, 0.35, th])
+        parts.append((tv, ti, None, m_trunk))
+        cv, ci, cn = make_sphere([tx, ty, th + 1.2], 1.1 + 0.6 * rs.rand(), tree_res, tree_res + 8)
+        parts.append((cv, ci, cn, m_leaf))
+
+    for k in range(lamp_count):
+        a = 2 * np.pi * k / lamp_count
+        lx, ly = np.cos(a) * extent * 0.6, np.sin(a) * extent * 0.6
+        pv, pi = make_box([lx, ly, 2.0], [0.15, 0.15, 4.0])
+        parts.append((pv, pi, None, m_trunk))
+        sv, si, sn = make_sphere([lx, ly, 4.2], 0.3, 8, 12)
+        parts.append((sv, si, sn, m_lamp))
+    sgn = _quad([-3, -extent * 0.84, 3], [3, -extent * 0.84, 3],
+                [3, -extent * 0.84, 4.2], [-3, -extent * 0.84, 4.2])
+    parts.append((sgn[0], sgn[1], None, m_sign))
+
+    materials = {
+        "base_color": [[0.35, 0.35, 0.36], [0.45, 0.42, 0.4], [0.6, 0.5, 0.42],
+                       [0.3, 0.25, 0.23], [0.8, 0.85, 0.9], [0.15, 0.4, 0.12],
+                       [0.3, 0.2, 0.12], [1.0, 0.9, 0.7], [0.9, 0.3, 0.6]],
+        "metalness": [0.0, 0.0, 0.0, 0.1, 0.0, 0.0, 0.0, 0.0, 0.0],
+        "roughness": [0.8, 0.7, 0.75, 0.5, 0.05, 0.8, 0.9, 0.4, 0.3],
+        "emission": [[0, 0, 0]] * 7 + [[40.0, 36.0, 28.0], [25.0, 8.0, 17.0]],
+        "ior": [1.5] * 9,
+        "flags": [config.FLAG_NON_TRANSPARENT] * 4 + [
+            config.FLAG_TRANSPARENT if glass else config.FLAG_NON_TRANSPARENT,
+            config.FLAG_NON_TRANSPARENT | config.FLAG_LEAF,   # canopies transmit light
+        ] + [config.FLAG_NON_TRANSPARENT] * 3,
+    }
+    return _assemble(parts, materials)   # emissive list sized to keep every lamp

@@ -34,6 +34,7 @@ from nrdsample_tpu.scene import procedural as jproc
 from nrdsample_tpu_torch.ops import _kernels, dense_cuda, emissive_probe, intersect, traversal
 from nrdsample_tpu_torch.render import emissive_is
 from nrdsample_tpu_torch.scene import procedural
+from torch_session_cache import session_cached
 
 TOL = 1e-6
 
@@ -140,6 +141,11 @@ np.savez(sys.argv[1], **out)
 
 @pytest.fixture(scope="module")
 def unfused_oracle(tmp_path_factory):
+    return session_cached(tmp_path_factory, "torch_dense_hit_unfused_oracle",
+                          lambda: _unfused_oracle(tmp_path_factory))
+
+
+def _unfused_oracle(tmp_path_factory):
     """The Pallas kernels' results (interpret mode) from a JAX process whose
     XLA:CPU may not emit FMA instructions."""
     path = tmp_path_factory.mktemp("oracle") / "unfused.npz"

@@ -27,10 +27,12 @@ from nrdsample_tpu.scene import procedural as jproc
 from nrdsample_tpu.scene.types import look_at as jlook_at
 from nrdsample_tpu_torch import config, convert
 from nrdsample_tpu_torch.config import Denoiser, NrdMode, OnScreen, RenderConfig, TracingMode
-from nrdsample_tpu_torch.ops import intersect, traversal
+from nrdsample_tpu_torch.ops import emissive_probe, intersect, traversal
 from nrdsample_tpu_torch.pipeline import frame, records
+from nrdsample_tpu_torch.render import emissive_is
 from nrdsample_tpu_torch.scene import procedural
 from nrdsample_tpu_torch.scene.types import look_at
+from torch_session_cache import session_cached
 
 OUTLIER_FRAC = 0.005
 MEAN_REL = 1e-3
@@ -59,7 +61,11 @@ def _outlier_frac(ref, got):
 
 
 @pytest.fixture(scope="module")
-def two_frames():
+def two_frames(tmp_path_factory):
+    return session_cached(tmp_path_factory, "torch_frame_cornell", _two_frames)
+
+
+def _two_frames():
     """[(JAX outputs, port outputs)] for frames 0 and 1, plus both histories."""
     jctx, jscene = jtraversal.build_context(jproc.cornell_box())
     jc = jlook_at([0.0, -3.2, 1.0], [0.0, 0.0, 1.0], fov_y_deg=39.0)
@@ -248,12 +254,32 @@ def _assert_hits_as_dense(ctx, scene):
                                   "over_1024_tris", "over_512_emitters"])
 def test_later_scene_branches_raise(name):
     """A scene feature of a later slice raises NotImplementedError from
-    build_context. Scenes over 1024 triangles are ported now: they take
-    cluster mode, and their hits are those of brute force."""
+    build_context. Ported since: scenes over 1024 triangles (cluster mode,
+    with the hits of brute force), glass (build_scene_contexts splits off a
+    transparent context after the opaque range) and more than 512 emitters
+    (on the CPU the dense plain probe; the emissive ClusterSet is built for
+    the card only)."""
     if name == "over_1024_tris":
         ctx, scene = traversal.build_context(_scene_variant(name), device="cpu")
         assert ctx.mode == "cluster" and ctx.clusters.count == 9
         _assert_hits_as_dense(ctx, scene)
+        return
+    if name == "transparent":
+        ctxs, scene = traversal.build_scene_contexts(_scene_variant(name), device="cpu")
+        assert ctxs.transparent.mode == ctxs.opaque.mode == "dense"
+        assert ctxs.transparent.tri_offset == ctxs.opaque.tris.count == 12
+        assert ctxs.transparent.tris.count == scene.tris.count - 12 == 24
+        assert bool((scene.materials.flags[scene.tris.material[12:].long()] == config.FLAG_TRANSPARENT).all())
+        return
+    if name == "over_512_emitters":
+        ctx, scene = traversal.build_context(_scene_variant(name), device="cpu")
+        assert ctx.emissive is None
+        em = emissive_is.build_emissive_set(scene)
+        o = torch.tensor([[0.0, 0.0, 1.0]]).expand(64, 3).contiguous()
+        d = torch.nn.functional.normalize(torch.randn(64, 3, generator=torch.Generator().manual_seed(0)),
+                                          dim=-1)
+        assert em["p0"].shape[0] == 513
+        assert torch.equal(emissive_is.light_probe(em, o, d), emissive_probe.light_probe_plain(em, o, d))
         return
     with pytest.raises(NotImplementedError):
         traversal.build_context(_scene_variant(name), device="cpu")

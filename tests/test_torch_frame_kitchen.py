@@ -30,6 +30,7 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.denoise import atrous_cuda, taa_cuda, taccum_cuda
 from nrdsample_tpu_torch.ops import dense_cuda, reproject
 from nrdsample_tpu_torch.pipeline import bench_configs, frame
+from torch_session_cache import session_cached
 
 OUTLIER_FRAC = 0.005
 MEAN_REL = 1e-3
@@ -60,7 +61,11 @@ def _outlier_frac(ref, got):
 
 
 @pytest.fixture(scope="module")
-def frames():
+def frames(tmp_path_factory):
+    return session_cached(tmp_path_factory, "torch_frame_kitchen", _frames)
+
+
+def _frames():
     """([(JAX outputs, port outputs)] per frame, JAX history, port history,
     kernel launches during the port's run)."""
     spec = bench_configs.CONFIGS["kitchen1080"]

@@ -26,9 +26,11 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.config import Denoiser, RenderConfig
 from nrdsample_tpu_torch.ops import packet, reproject, traversal
 from nrdsample_tpu_torch.pipeline import frame
+from torch_session_cache import session_cached
 
-# one worker runs the whole file under --dist loadgroup, so the JAX frame
-# compiles once
+# one worker runs the whole file under --dist loadgroup (pytest.ini's
+# default); under --dist load the frame fixture is shared through
+# torch_session_cache instead
 pytestmark = pytest.mark.xdist_group("torch_frame_reblur")
 
 OUTLIER_FRAC = 0.005
@@ -58,7 +60,11 @@ def _outlier_frac(ref, got):
 
 
 @pytest.fixture(scope="module")
-def frames():
+def frames(tmp_path_factory):
+    return session_cached(tmp_path_factory, "torch_frame_reblur", _frames)
+
+
+def _frames():
     """([(JAX outputs, port outputs)] per frame, JAX history, port history,
     port kernel launches during the run)."""
     jscene0 = jproc.shader_balls(grid=2, sphere_res=12)

@@ -35,6 +35,7 @@ from nrdsample_tpu_torch.denoise.reblur import spec_magic_curve
 from nrdsample_tpu_torch.ops import traversal
 from nrdsample_tpu_torch.render import emissive_is, gbuffer, trace_opaque
 from nrdsample_tpu_torch.scene import camera
+from torch_session_cache import session_cached
 
 OUTLIER_FRAC = 0.005
 DECODE_TOL = 1e-5
@@ -153,11 +154,16 @@ def _primary_ties(want_tri, got_tri, origin, direction, tris):
 
 
 @pytest.fixture(scope="module", params=["cornell", "kitchen"])
-def traced(request):
+def traced(request, tmp_path_factory):
+    return session_cached(tmp_path_factory, f"torch_trace_{request.param}",
+                          lambda: _traced(request.param))
+
+
+def _traced(name):
     """(name, JAX gbuffer, port gbuffer, tie pixels) of trace_opaque at
     24x24, frame 3."""
     res, frame = 24, 3
-    (jctx, jscene, jc, js), (ctx, scene, tc, s) = _setup(request.param)
+    (jctx, jscene, jc, js), (ctx, scene, tc, s) = _setup(name)
     jcfg = cfg_from_render({}, res=res)
     fn = jax.jit(lambda sc, c, st: jtrace.trace_opaque(jctx, sc, c, jcfg, st, jnp.int32(frame)))
     want = jax.tree.map(np.asarray, fn(jscene, jc, js))
@@ -168,7 +174,7 @@ def traced(request):
     tris = {k: getattr(scene.tris, k).numpy() for k in ("p0", "e1", "e2")}
     ties = _primary_ties(want["tri"], got["tri"].numpy(), o.numpy(), d.numpy(), tris)
     assert ties.mean() <= 0.01
-    return request.param, want, got, ties
+    return name, want, got, ties
 
 
 PLANES = ["view_z", "mv", "normal", "roughness", "metalness", "base_color", "material_id",
