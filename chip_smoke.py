@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old-csrc DIR]
 
 Builds the port's CUDA kernels from ``nrdsample_tpu_torch/csrc`` and renders
 four configurations through ``pipeline.frame.render_frame``: first
@@ -16,7 +16,10 @@ kernel, RELAX + SIGMA, TAA, SHARC with its FULL pass). It checks that each
 main path went through its kernels, compares card frames with CPU frames
 and the cornellbox-000 golden, and prints one JSON line of kernels plus a
 final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
-with no result line. Needs a CUDA device; imports nothing of JAX.
+with no result line. Needs a CUDA device; imports nothing of JAX. The option
+builds an older tree's streaming packet, resident packet and bilinear gather
+kernels from their sources and times them beside this tree's on the same
+inputs; the default run does not take it.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ PROBE_RAYS = 16 * 1920 * 1080
 DIVERGENT_RAYS = 3 * 512 * 512   # shaderballs512's batched shadow launch
 PLAIN_SUBSET = 1 << 17           # rays of a divergent set held against the plain scan
 SB_FRAMES = 8                    # timed shaderballs512 frames, after 2 warm-up
+GATHER_REPS = 200                # graph replays per timing of the bilinear gather
+GATHER_ROUNDS = 5                # alternating timings of the gather and grid_sample
 KERNEL_TOL = 1e-6          # abs and rel, kernel vs plain on the same inputs
 FRAME_OUTLIER_FRAC = 0.005  # the frame tolerance of tests/test_torch_frame.py
 FRAME_MEAN_REL = 1e-3
@@ -228,15 +233,101 @@ def frame_mismatch(ref: torch.Tensor, got: torch.Tensor) -> tuple[float, float]:
     return float(bad.double().mean()), abs(float(got.mean() - ref.mean())) / max(abs(float(ref.mean())), 1e-12)
 
 
-def check_stream_kernel(cs, tris, cam, cfg, dev, card) -> dict:
+def warp_walk_tests(cs, o, d, t_max, res: dict, any_hit: bool, chunk: int = 1 << 14) -> int:
+    """A lower bound of the ray/triangle tests the streaming kernel's warp
+    walk makes: per 32-ray warp (rays in packet order), every cluster whose
+    box some lane enters below its final t, x 32 x 128. Such a cluster is
+    tested whatever the walk's order, since a lane's best t only falls to its
+    final t; in any-hit mode a blocked lane counts only its blocker's
+    cluster. The same chunked loop as ``packet_tests_needed``."""
+    from nrdsample_tpu_torch.ops import cluster
+
+    n = 0
+    for a in range(0, o.shape[0], chunk):
+        s = slice(a, a + chunk)
+        e = cluster._cluster_entry(o[s], d[s], cs.bounds_min, cs.bounds_max, t_max[s])
+        need = (e < cluster.T_MAX) & (e < res["t"][s, None])
+        if any_hit:
+            blocked = (res["tri"][s] >= 0) & (res["t"][s] < t_max[s])
+            own = (torch.arange(cs.count, device=o.device)[None, :]
+                   == torch.div(res["tri"][s], 128, rounding_mode="floor")[:, None])
+            need = torch.where(blocked[:, None], own, need)
+        n += int(need.reshape(-1, 32, cs.count).any(dim=1).sum())
+    return n * 32 * 128
+
+
+def build_old_lib(csrc: str):
+    """Build an older tree's packet and gather kernels (``csrc`` is its
+    kernel source directory) with the port's nvcc flags into a library of
+    their own under the ignored build directory, for timing beside the
+    port's kernels; never called on the main path. The older streaming
+    kernel walks one list per packet and takes no cluster bounds."""
+    import ctypes
+    import hashlib
+
+    from nrdsample_tpu_torch.ops import _kernels
+
+    sources = [os.path.join(csrc, f)
+               for f in ("packet_hit.cu", "packet_hit_stream.cu", "bilinear_sample.cu")]
+    h = hashlib.sha256()
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(_kernels.BUILD_DIR, f"compare_old_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+        proc = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", out, *sources],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            fail(f"nvcc failed on {sources}:\n{proc.stderr}")
+    lib = ctypes.CDLL(out)
+    p, i32, i64 = _kernels._P, _kernels._I32, _kernels._I64
+    # origin, direction, t_max, order, keys, slab, n_clusters, n_packets,
+    # any_hit[, need_uv], t, u, v, tri, stream
+    lib.nrd_packet_hit_stream.argtypes = [p] * 6 + [i32, i64, i32, i32] + [p] * 5
+    lib.nrd_packet_hit.argtypes = [p] * 6 + [i32, i64, i32] + [p] * 5
+    lib.nrd_bilinear_sample.argtypes = _kernels.SIGNATURES["nrd_bilinear_sample"]
+    for f in (lib.nrd_packet_hit_stream, lib.nrd_packet_hit, lib.nrd_bilinear_sample):
+        f.restype = ctypes.c_int
+    return lib
+
+
+def launch_old(lib, symbol: str, cs, o, d, tm, order, keys, any_hit: bool, *extra) -> dict:
+    """Launch the older tree's packet kernel ``symbol`` on the port's packet
+    kernel arguments; ``extra`` are the flags after any_hit."""
+    from nrdsample_tpu_torch.ops import _kernels
+
+    r = o.shape[0]
+    out = {k: torch.empty(r, dtype=torch.int32 if k == "tri" else torch.float32, device=o.device)
+           for k in ("t", "u", "v", "tri")}
+    rc = getattr(lib, symbol)(o.data_ptr(), d.data_ptr(), tm.data_ptr(), order.data_ptr(),
+                              keys.data_ptr(), cs.slab.data_ptr(), cs.count, r // 128,
+                              int(any_hit), *extra, out["t"].data_ptr(), out["u"].data_ptr(),
+                              out["v"].data_ptr(), out["tri"].data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+    _kernels.check(rc, symbol)
+    return out
+
+
+#: the previous streaming kernel (one walk per 128-ray packet) on exterior720's
+#: sets (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W), quoted when no older
+#: source is given to compare with
+PACKET_WALK_STREAM_MS = {"primary": 8.244, "divergent": 277.126, "any_hit": 263.410}
+
+
+def check_stream_kernel(cs, tris, cam, cfg, dev, card, old_lib=None) -> dict:
     """The streaming packet kernel on the exterior's opaque ClusterSet: its
     coherent camera rays, a divergent bounce-sized set with per-ray t_max
     (re-binned by morton order, as the frame does) and the any-hit mode on
     that set, each held against the plain scan on 2^17 rays drawn from the
     set, then timed alone on stage 1's worklists beside the resident kernel
-    on the same inputs (which must agree with it exactly). Returns {case:
-    (max |err|, stream ms, plain ms, bound, subset size, resident ms,
-    stage-1 ms)}."""
+    on the same inputs. Where the two kernels differ (the warp walk tests a
+    per-ray subset of what the packet walk tests), the streaming kernel must
+    agree with the plain scan on those rays too. ``old_lib`` (the previous
+    design's kernels built from their source) is timed beside it when given,
+    else the previous times are quoted. Returns {case: (max |err|, stream
+    ms, plain ms, bound, subset size, resident ms, stage-1 ms, previous ms,
+    whether the previous ms was measured in this call)}."""
     from nrdsample_tpu_torch.ops import cluster, packet, traversal
     from nrdsample_tpu_torch.scene import camera
 
@@ -267,16 +358,21 @@ def check_stream_kernel(cs, tris, cam, cfg, dev, card) -> dict:
             fail(f"the {case} rays did not take the streaming kernel")
         sub = torch.from_numpy(np.sort(np.random.RandomState(7).choice(n, PLAIN_SUBSET,
                                                                         replace=False))).to(dev)
-        so, sd, stm = ro[sub], rd[sub], rtm[sub]
-        if any_hit:
-            plain_ms, ref = once_ms(lambda: cluster.any_hit_clustered(cs, so, sd, stm))
-            blocked = (got["tri"][sub] >= 0) & (got["t"][sub] < stm)
-            tri_bad, err, ok = int((blocked != ref).sum()), 0.0, bool(torch.equal(blocked, ref))
-            hits = int(ref.sum())
-        else:
-            plain_ms, ref = once_ms(lambda: cluster.closest_hit_clustered(cs, so, sd, stm))
-            tri_bad, err, ok = compare_hits({k: v[sub] for k, v in got.items()}, ref, so, sd, tris)
-            hits = int((ref["tri"] >= 0).sum())
+
+        def against_plain(res, idx):
+            """(tri or blocked differences, max |err|, ok, hits, plain ms) of
+            res on rays idx against the plain scan."""
+            so, sd, stm = ro[idx], rd[idx], rtm[idx]
+            if any_hit:
+                ms, ref = once_ms(lambda: cluster.any_hit_clustered(cs, so, sd, stm))
+                blocked = (res["tri"][idx] >= 0) & (res["t"][idx] < stm)
+                return (int((blocked != ref).sum()), 0.0, bool(torch.equal(blocked, ref)),
+                        int(ref.sum()), ms)
+            ms, ref = once_ms(lambda: cluster.closest_hit_clustered(cs, so, sd, stm))
+            bad, err, ok = compare_hits({k: v[idx] for k, v in res.items()}, ref, so, sd, tris)
+            return bad, err, ok, int((ref["tri"] >= 0).sum()), ms
+
+        tri_bad, err, ok, hits, plain_ms = against_plain(got, sub)
         # the kernels alone on stage 1's worklists of the rays in packet order
         perm = (torch.sort(packet._morton_sort_keys(ro, rd, cs), stable=True).indices if sort
                 else torch.arange(n, device=dev))
@@ -285,32 +381,84 @@ def check_stream_kernel(cs, tris, cam, cfg, dev, card) -> dict:
         a = packet.launch_stream(cs, ko, kd, ktm, order, keys, any_hit, not any_hit)
         b = packet.launch(cs, ko, kd, ktm, order, keys, any_hit)
         torch.cuda.synchronize()
-        same = all(torch.equal(a[k], b[k]) for k in ("t", "tri")) and (
-            any_hit or all(torch.equal(a[k], b[k]) for k in "uv"))
+        # rays (in the callers' order) where the two kernels differ, and why
+        if any_hit:
+            differ = ((a["tri"] >= 0) & (a["t"] < ktm)) != ((b["tri"] >= 0) & (b["t"] < ktm))
+        else:
+            differ = torch.stack([a[k] != b[k] for k in ("t", "u", "v", "tri")]).any(0)
+        idx = perm[torch.nonzero(differ).flatten()]
+        a_cal = {k: torch.empty_like(v).index_copy_(0, perm, v) for k, v in a.items()}
+        b_cal = {k: torch.empty_like(v).index_copy_(0, perm, v) for k, v in b.items()}
+        n_diff = int(idx.numel())
+        why = ""
+        if n_diff:
+            d_bad, d_err, d_ok = against_plain(a_cal, idx)[:3]
+            r_bad, _, r_ok = against_plain(b_cal, idx)[:3]
+            ok = ok and d_ok
+            err = max(err, d_err)
+            why = (f": on them the streaming kernel {'agrees' if d_ok else 'DISAGREES'} with the "
+                   f"plain scan ({d_bad} {'blocked flags off' if any_hit else 'tri differences'}, "
+                   f"float64-proven ties allowed); the resident kernel "
+                   + ("agrees too, so they differ by ties between the two walk orders" if r_ok
+                      else f"does not on {r_bad if r_bad >= 0 else 'the hit/miss of some'}: "
+                           f"hits in clusters the ray enters at or past its best t, which the "
+                           f"cull and the plain scan skip"))
         ms = graph_ms(lambda: packet.launch_stream(cs, ko, kd, ktm, order, keys, any_hit,
                                                    not any_hit))
         res_ms = graph_ms(lambda: packet.launch(cs, ko, kd, ktm, order, keys, any_hit))
         stage1_ms = median_ms(lambda: packet.worklists(ko, kd, cs, ktm), reps=3)
         tests = packet_tests_needed(cs, ro, rd, rtm, got, any_hit, chunk=1 << 14)
-        walk = packet_walk_tests(keys, got["t"][perm], packet.BLOCK_RAYS)
+        walk = packet_walk_tests(keys, b["t"], packet.BLOCK_RAYS)
+        warp_lb = warp_walk_tests(cs, ko, kd, ktm, a, any_hit)
         bnd = bound_ms(n * (28 + 16) + order.numel() * 8 + cs.slab.numel() * 4, tests * MT_OPS)
+        if old_lib is not None:
+            old = launch_old(old_lib, "nrd_packet_hit_stream", cs, ko, kd, ktm, order, keys,
+                             any_hit, int(not any_hit))
+            old_res = launch_old(old_lib, "nrd_packet_hit", cs, ko, kd, ktm, order, keys, any_hit)
+            torch.cuda.synchronize()
+            same_res = all(torch.equal(old_res[k], b[k]) for k in ("t", "u", "v", "tri"))
+            old_ms = graph_ms(lambda: launch_old(old_lib, "nrd_packet_hit_stream", cs, ko, kd,
+                                                 ktm, order, keys, any_hit, int(not any_hit)))
+            old_src = (f"built from its source, measured in this call; the previous resident "
+                       f"kernel {'identical' if same_res else 'DIFFERENT'} to this tree's")
+            old_measured = True
+            if not same_res:
+                fail(f"the resident packet kernel's results changed ({case})")
+            del old, old_res
+        else:
+            old_ms, old_src, old_measured = (PACKET_WALK_STREAM_MS[case],
+                                             "quoted from PERF.md, not measured in this call",
+                                             False)
         print(f"[packet_hit_stream] exterior {case} C={cs.count} N={n} sort={sort} "
               f"any_hit={any_hit}: {'blocked' if any_hit else 'hits'} {hits} of {PLAIN_SUBSET} "
               f"checked, tri (or blocked) differences {tri_bad} (float64-proven ties allowed), "
-              f"max|err| t/u/v {err:.3g}, resident kernel on the same worklists "
-              f"{'identical' if same else 'DIFFERENT'} | streaming kernel {ms:.3f} ms, resident "
-              f"kernel {res_ms:.3f} ms at N={n} (stage 1 {stage1_ms:.3f} ms), plain "
-              f"{plain_ms:.3f} ms at N={PLAIN_SUBSET}, bound {bnd[0]:.4f} ms ({bnd[1]}, {tests} "
-              f"tests needed; the walk makes {walk}) ({card})")
-        if not ok or not same or hits == 0:
-            fail(f"streaming packet kernel disagrees with its plain version or the resident "
-                 f"kernel ({case})")
-        out[case] = (err, ms, plain_ms, bnd, PLAIN_SUBSET, res_ms, stage1_ms)
-        del got, ref, ko, kd, ktm, order, keys, a, b
+              f"max|err| t/u/v {err:.3g}; the streaming and resident kernels differ on {n_diff} "
+              f"rays{why} | streaming kernel {ms:.3f} ms (the previous packet walk "
+              f"{old_ms:.3f} ms, "
+              f"{old_src}), resident kernel {res_ms:.3f} ms at N={n} (stage 1 "
+              f"{stage1_ms:.3f} ms), plain {plain_ms:.3f} ms at N={PLAIN_SUBSET}, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}, {tests} tests needed; the packet walk makes {walk}, "
+              f"the warp walk at least {warp_lb}) ({card})")
+        if not ok or hits == 0:
+            fail(f"streaming packet kernel disagrees with its plain version ({case})")
+        out[case] = (err, ms, plain_ms, bnd, PLAIN_SUBSET, res_ms, stage1_ms, old_ms,
+                     old_measured)
+        del got, ko, kd, ktm, order, keys, a, b, a_cal, b_cal
     return out
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-csrc", metavar="DIR",
+                    help="the csrc directory of an older tree whose streaming kernel walks one "
+                         "list per packet and takes no cluster bounds (e.g. `git archive 85ec5de "
+                         "nrdsample_tpu_torch/csrc`): its streaming kernel and gather are timed "
+                         "beside "
+                         "this tree's on exterior720 and its resident kernel must give identical "
+                         "results (without it, the previous times are quoted from PERF.md)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
     from nrdsample_tpu_torch.config import Denoiser, RenderConfig, make_settings
@@ -343,6 +491,7 @@ def main() -> int:
     _kernels.load()
     print(f"[build] {os.path.relpath(lib_path, REPO)} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_kernels.BUILD_SECONDS if _kernels.BUILD_SECONDS is not None else 'cached'})")
+    old_lib = build_old_lib(args.old_csrc) if args.old_csrc else None
 
     # ---- 2. cluster main path at real size: shaderballs512 (REBLUR + SIGMA) ----
     # timed first, before the kernel checks and the other configurations, and
@@ -518,7 +667,7 @@ def main() -> int:
             ref = filtering.sample_bilinear(img, pos)
             torch.cuda.synchronize()
             err, ok = max_err(got, ref)
-            ms = graph_ms(lambda: reproject.sample_bilinear_cuda(img, pos))
+            equal = torch.equal(got, ref)
             plain_ms = median_ms(lambda: filtering.sample_bilinear(img, pos))
             # the library yardstick: one grid_sample call on the same inputs
             # (border padding, pixel centres at (i + 0.5) / size * 2 - 1)
@@ -529,13 +678,42 @@ def main() -> int:
                 return torch.nn.functional.grid_sample(nchw, grid, mode="bilinear",
                                                        padding_mode="border", align_corners=False)
 
+            def kernel():
+                return reproject.sample_bilinear_cuda(img, pos)
+
             lib_err = float((lib()[0].permute(1, 2, 0) - ref).abs().max())
-            lib_ms = graph_ms(lib)
+            # ~10-µs kernels: 200 replays per timing, so that the window is not
+            # a few launches' jitter, and GATHER_ROUNDS timings of each,
+            # alternating, compared by their medians
+            rounds = [(graph_ms(kernel, reps=GATHER_REPS), graph_ms(lib, reps=GATHER_REPS))
+                      for _ in range(GATHER_ROUNDS)]
+            ms = statistics.median(k for k, _ in rounds)
+            lib_ms = statistics.median(v for _, v in rounds)
+            wins = sum(k <= v for k, v in rounds)
+            old = ""
+            if old_lib is not None:
+                def previous():
+                    o = torch.empty_like(ref)
+                    _kernels.check(old_lib.nrd_bilinear_sample(
+                        img.data_ptr(), 512, 512, c, pos.data_ptr(), pos.numel() // 2,
+                        o.data_ptr(), torch.cuda.current_stream().cuda_stream), "previous bilinear")
+                    return o
+
+                same_old = torch.equal(previous(), got)
+                old = (f", the previous design {graph_ms(previous, reps=GATHER_REPS):.4f} ms "
+                       f"(built from its source, this call; "
+                       f"{'bit-equal' if same_old else 'NOT bit-equal'})")
             bnd = bound_ms(img.numel() * 4 + pos.numel() * 4 + got.numel() * 4, got.numel() * 10)
-            print(f"[bilinear] (512, 512, {c}) displacement {disp} px: max|err| {err:.3g} | kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms (its "
-                  f"max|diff| {lib_err:.3g}), bound {bnd[0]:.4f} ms ({bnd[1]}) ({card})")
-            if not ok:
+            print(f"[bilinear] (512, 512, {c}) displacement {disp} px: max|err| {err:.3g} "
+                  f"({'bit-equal' if equal else 'NOT bit-equal'}) | kernel {ms:.4f} ms "
+                  f"({bnd[0] / ms:.1%} of its bound; median "
+                  f"{'at or below' if ms <= lib_ms else 'ABOVE'} grid_sample's, at or below it "
+                  f"in {wins} of {GATHER_ROUNDS} rounds){old}, plain "
+                  f"{plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms (its max|diff| {lib_err:.3g}), "
+                  f"rounds (kernel, grid_sample) "
+                  f"{', '.join(f'({k:.4f}, {v:.4f})' for k, v in rounds)}, bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}) ({card})")
+            if not ok or not equal:
                 fail(f"bilinear kernel disagrees with its plain version (C={c}, {disp})")
             bil_res[(c, disp)] = (err, ms, plain_ms, lib_ms, bnd)
 
@@ -731,7 +909,7 @@ def main() -> int:
           f"{int(scene.emissive_count)} emitters) in {time.perf_counter() - t0:.1f} s")
     tris = {k: getattr(scene.tris, k)[:ctxs.transparent.tri_offset].cpu().numpy()
             for k in ("p0", "e1", "e2")}
-    stream_res = check_stream_kernel(cs, tris, cam, cfg, dev, card)
+    stream_res = check_stream_kernel(cs, tris, cam, cfg, dev, card, old_lib)
     del tris
     hist = frame.History.create(cfg, dev)
     exterior_counters = {"packet_hit_stream": None, "packet_hit": packet,
@@ -959,8 +1137,11 @@ def main() -> int:
          "library_ms": None},
     ]
     print(f"[exterior720 summary] {exterior[0]:.3f} ms/frame, launches/frame {exterior[1]}; "
-          f"streaming vs resident kernel ms on the same worklists: " + ", ".join(
-              f"{k} {v[1]:.3f} vs {v[5]:.3f}" for k, v in stream_res.items()) + f" ({card})")
+          f"streaming kernel vs the previous packet walk vs resident kernel ms on the same "
+          f"worklists: "
+          + ", ".join(f"{k} {v[1]:.3f} vs {v[7]:.3f}{'' if v[8] else ' (quoted)'} vs {v[5]:.3f}"
+                      for k, v in stream_res.items())
+          + f" ({card})")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,17 +13,14 @@ constexpr float kBaryLo = (float)(-1e-6);           // u, v >= -1e-6
 constexpr float kBaryHi = (float)(1.0 + 1e-6);      // u + v <= 1 + 1e-6
 constexpr float kTMin = (float)(1e-5);              // t > 1e-5
 
-// Ray (o, d) against the triangle tri = [p0, e1, e2], its 9 floats kStride
-// apart (1: one triangle's floats contiguous; 128: the plane-major tile of a
-// cluster, tri pointing at triangle k of plane 0). Writes t, u, v and returns
-// whether the ray hits it; backfaces count (two-sided traversal).
-template <int kStride>
-__device__ __forceinline__ bool mt_hit_strided(float ox, float oy, float oz, float dx, float dy,
-                                               float dz, const float* tri, float& t, float& u,
-                                               float& v) {
-  const float p0x = tri[0], p0y = tri[kStride], p0z = tri[2 * kStride];
-  const float e1x = tri[3 * kStride], e1y = tri[4 * kStride], e1z = tri[5 * kStride];
-  const float e2x = tri[6 * kStride], e2y = tri[7 * kStride], e2z = tri[8 * kStride];
+// Ray (o, d) against the triangle p0, e1 = p1 - p0, e2 = p2 - p0. Writes t,
+// u, v and returns whether the ray hits it; backfaces count (two-sided
+// traversal).
+__device__ __forceinline__ bool mt_hit_values(float ox, float oy, float oz, float dx, float dy,
+                                              float dz, float p0x, float p0y, float p0z,
+                                              float e1x, float e1y, float e1z, float e2x,
+                                              float e2y, float e2z, float& t, float& u,
+                                              float& v) {
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
   const float pvz = dx * e2y - dy * e2x;
@@ -38,6 +35,18 @@ __device__ __forceinline__ bool mt_hit_strided(float ox, float oy, float oz, flo
   v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
   t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
   return !small && u >= kBaryLo && v >= kBaryLo && u + v <= kBaryHi && t > kTMin;
+}
+
+// The test on the triangle [p0, e1, e2] whose 9 floats lie kStride apart (1:
+// one triangle's floats contiguous; 128: the plane-major tile of a cluster,
+// tri pointing at triangle k of plane 0).
+template <int kStride>
+__device__ __forceinline__ bool mt_hit_strided(float ox, float oy, float oz, float dx, float dy,
+                                               float dz, const float* tri, float& t, float& u,
+                                               float& v) {
+  return mt_hit_values(ox, oy, oz, dx, dy, dz, tri[0], tri[kStride], tri[2 * kStride],
+                       tri[3 * kStride], tri[4 * kStride], tri[5 * kStride], tri[6 * kStride],
+                       tri[7 * kStride], tri[8 * kStride], t, u, v);
 }
 
 // The test on one triangle's 9 contiguous floats.

@@ -1,6 +1,7 @@
 // Shared pieces of the two packet kernels (packet_hit.cu, the resident walk,
 // and packet_hit_stream.cu, the streamed one): the packet and cluster sizes,
-// and the per-cluster packet state the stop test reads.
+// the order-preserving float map of their max reductions, and the resident
+// walk's per-cluster packet state, which its stop test reads.
 
 #pragma once
 

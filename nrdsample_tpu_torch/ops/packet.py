@@ -12,9 +12,11 @@ bound of the packet's entry distance. Up to ``FLAT_WORKLIST_MAX_C`` clusters
 the bound is exact (every ray against every cluster box); above, it is
 hierarchical (exact per-ray entries into the 8-cluster superclusters, refined
 by a per-packet interval test of each cluster), as in the JAX package. The
-kernel runs one thread block per packet and walks that list until the next
-entry is past every ray's best hit. The streaming kernel takes slabs larger
-than ``PACKET_VMEM_LIMIT``, the JAX package's rule.
+resident kernel runs one thread block per packet and walks that list until
+the next entry is past every ray's best hit. The streaming kernel takes slabs
+larger than ``PACKET_VMEM_LIMIT``, the JAX package's rule; each of its warps
+walks the packet's list on its own, and a ray tests a cluster only while its
+entry into the cluster's box is below its best hit, the plain scan's rule.
 """
 
 from __future__ import annotations
@@ -219,10 +221,12 @@ def closest_hit_packet_cuda(cs: ClusterSet, origin, direction, t_max=T_MAX, sort
     return {k: v[:r] for k, v in res.items()}
 
 
-def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, *flags) -> dict:
+def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, boxes: bool,
+            *flags) -> dict:
     """Check the inputs of a packet kernel and launch it: (R, 3) rays with R
     a multiple of 128, (R,) t_max and stage 1's (R / 128, C) worklists, all
-    contiguous on one CUDA device. Returns dict(t, u, v, tri) of (R,)
+    contiguous on one CUDA device; with ``boxes`` the kernel also takes the
+    (C, 3) cluster bounds after the slab. Returns dict(t, u, v, tri) of (R,)
     tensors."""
     dev = origin.device
     if dev.type != "cuda":
@@ -238,6 +242,11 @@ def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, 
     check("order", order, torch.int32, (r // BLOCK_RAYS, c), dev)
     check("keys", keys, f32, (r // BLOCK_RAYS, c), dev)
     check("slab", cs.slab, f32, (cs.slab.shape[0], 128), dev)
+    bounds = []
+    if boxes:
+        check("bounds_min", cs.bounds_min, f32, (c, 3), dev)
+        check("bounds_max", cs.bounds_max, f32, (c, 3), dev)
+        bounds = [cs.bounds_min.data_ptr(), cs.bounds_max.data_ptr()]
     t = torch.empty(r, dtype=f32, device=dev)
     u = torch.empty(r, dtype=f32, device=dev)
     v = torch.empty(r, dtype=f32, device=dev)
@@ -246,8 +255,8 @@ def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, symbol)(origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
-                                  order.data_ptr(), keys.data_ptr(), cs.slab.data_ptr(), c,
-                                  r // BLOCK_RAYS, *flags, t.data_ptr(), u.data_ptr(),
+                                  order.data_ptr(), keys.data_ptr(), cs.slab.data_ptr(),
+                                  *bounds, c, r // BLOCK_RAYS, *flags, t.data_ptr(), u.data_ptr(),
                                   v.data_ptr(), tri.data_ptr(), stream)
     _kernels.check(rc, symbol)
     return {"t": t, "u": u, "v": v, "tri": tri}
@@ -257,7 +266,8 @@ def launch(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit: bool 
     """The resident kernel (``csrc/packet_hit.cu``) alone on stage 1's
     worklists; see ``_launch`` for the inputs."""
     global LAUNCHES
-    res = _launch("nrd_packet_hit", cs, origin, direction, t_max, order, keys, int(any_hit))
+    res = _launch("nrd_packet_hit", cs, origin, direction, t_max, order, keys, False,
+                  int(any_hit))
     LAUNCHES += 1
     return res
 
@@ -267,7 +277,7 @@ def launch_stream(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit
     """The streaming kernel (``csrc/packet_hit_stream.cu``) alone on stage 1's
     worklists; see ``_launch`` for the inputs."""
     global STREAM_LAUNCHES
-    res = _launch("nrd_packet_hit_stream", cs, origin, direction, t_max, order, keys,
+    res = _launch("nrd_packet_hit_stream", cs, origin, direction, t_max, order, keys, True,
                   int(any_hit), int(need_uv))
     STREAM_LAUNCHES += 1
     return res

@@ -24,6 +24,9 @@ from nrdsample_tpu.ops import cluster as jcluster, packet as jpacket, traversal 
 from nrdsample_tpu.scene import procedural as jproc
 from nrdsample_tpu_torch.ops import cluster, intersect, packet, traversal
 from nrdsample_tpu_torch.scene import procedural
+from torch_session_cache import share_cores_between_workers
+
+share_cores_between_workers()
 
 TOL = 1e-5
 SCENES = {"shader_balls": lambda m: m.shader_balls(grid=2, sphere_res=12),

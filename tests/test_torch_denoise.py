@@ -26,6 +26,9 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.denoise import checkerboard, common, reblur, sigma
 from nrdsample_tpu_torch.mathlib import bluenoise, filtering
 from nrdsample_tpu_torch.ops import reproject
+from torch_session_cache import share_cores_between_workers
+
+share_cores_between_workers()
 
 TOL = 1e-5
 H, W = 24, 32
@@ -279,10 +282,13 @@ def test_bilinear_kernel_matches_plain_on_card(cuda_device, channels):
     g = torch.Generator(device="cpu").manual_seed(channels or 1)
     shape = (512, 512) if channels is None else (512, 512, channels)
     img = torch.randn(shape, generator=g).to(cuda_device)
-    for disp in (3.0, 20.0, 600.0):
-        pos = (torch.rand(4, 512, 512, 2, generator=g) * 512
-               + (torch.rand(4, 512, 512, 2, generator=g) - 0.5) * 2 * disp).to(cuda_device)
-        got = reproject.sample_bilinear_cuda(img, pos)
-        want = filtering.sample_bilinear(img, pos)
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # a leading batch of whole 128-position runs (the bicubic's tap axis) and
+    # one of 3,003 positions, whose last run is ragged
+    for lead in ((4, 512, 512), (3, 1001)):
+        for disp in (3.0, 20.0, 600.0):
+            pos = (torch.rand(*lead, 2, generator=g) * 512
+                   + (torch.rand(*lead, 2, generator=g) - 0.5) * 2 * disp).to(cuda_device)
+            got = reproject.sample_bilinear_cuda(img, pos)
+            want = filtering.sample_bilinear(img, pos)
+            assert torch.equal(got, want), (lead, disp)
 

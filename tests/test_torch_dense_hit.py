@@ -34,7 +34,9 @@ from nrdsample_tpu.scene import procedural as jproc
 from nrdsample_tpu_torch.ops import _kernels, dense_cuda, emissive_probe, intersect, traversal
 from nrdsample_tpu_torch.render import emissive_is
 from nrdsample_tpu_torch.scene import procedural
-from torch_session_cache import session_cached
+from torch_session_cache import session_cached, share_cores_between_workers
+
+share_cores_between_workers()
 
 TOL = 1e-6
 

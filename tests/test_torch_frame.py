@@ -32,7 +32,9 @@ from nrdsample_tpu_torch.pipeline import frame, records
 from nrdsample_tpu_torch.render import emissive_is
 from nrdsample_tpu_torch.scene import procedural
 from nrdsample_tpu_torch.scene.types import look_at
-from torch_session_cache import session_cached
+from torch_session_cache import session_cached, share_cores_between_workers
+
+share_cores_between_workers()
 
 OUTLIER_FRAC = 0.005
 MEAN_REL = 1e-3

@@ -30,7 +30,9 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.denoise import atrous_cuda, taa_cuda, taccum_cuda
 from nrdsample_tpu_torch.ops import dense_cuda, reproject
 from nrdsample_tpu_torch.pipeline import bench_configs, frame
-from torch_session_cache import session_cached
+from torch_session_cache import session_cached, share_cores_between_workers
+
+share_cores_between_workers()
 
 OUTLIER_FRAC = 0.005
 MEAN_REL = 1e-3

@@ -26,7 +26,9 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.config import Denoiser, RenderConfig
 from nrdsample_tpu_torch.ops import packet, reproject, traversal
 from nrdsample_tpu_torch.pipeline import frame
-from torch_session_cache import session_cached
+from torch_session_cache import session_cached, share_cores_between_workers
+
+share_cores_between_workers()
 
 # one worker runs the whole file under --dist loadgroup (pytest.ini's
 # default); under --dist load the frame fixture is shared through

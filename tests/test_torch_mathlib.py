@@ -13,6 +13,9 @@ import torch
 from nrdsample_tpu.mathlib import brdf as jbrdf, color as jcolor, geometry as jgeo
 from nrdsample_tpu.mathlib import rng as jrng, sampling as jsampling
 from nrdsample_tpu_torch.mathlib import brdf, color, geometry as geo, rng, sampling
+from torch_session_cache import share_cores_between_workers
+
+share_cores_between_workers()
 
 TOL = 1e-6
 N = 4096

@@ -20,6 +20,9 @@ import torch
 
 from nrdsample_tpu.denoise import atrous_pallas, relax as jrelax, taccum_pallas
 from nrdsample_tpu_torch.denoise import atrous_cuda, relax, taccum_cuda
+from torch_session_cache import share_cores_between_workers
+
+share_cores_between_workers()
 
 H, W = 24, 32
 PALLAS_TOL = 2e-5

@@ -21,6 +21,9 @@ from nrdsample_tpu_torch.config import make_settings
 from nrdsample_tpu_torch.pipeline import records
 from nrdsample_tpu_torch.scene import camera, procedural
 from nrdsample_tpu_torch.scene.types import look_at
+from torch_session_cache import share_cores_between_workers
+
+share_cores_between_workers()
 
 TOL = 1e-6
 

@@ -31,6 +31,9 @@ from nrdsample_tpu_torch.denoise import confidence
 from nrdsample_tpu_torch.ops import sharc
 from nrdsample_tpu_torch.pipeline import bench_configs
 from nrdsample_tpu_torch.render import sharc_update
+from torch_session_cache import share_cores_between_workers
+
+share_cores_between_workers()
 
 TOL = 1e-5
 

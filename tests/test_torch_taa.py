@@ -25,6 +25,9 @@ from nrdsample_tpu.mathlib import color as jcolor
 from nrdsample_tpu_torch import config as cfgmod
 from nrdsample_tpu_torch.denoise import sh, taa, taa_cuda
 from nrdsample_tpu_torch.mathlib import color
+from torch_session_cache import share_cores_between_workers
+
+share_cores_between_workers()
 
 H, W = 24, 32
 TOL = 1e-5

@@ -35,7 +35,9 @@ from nrdsample_tpu_torch.denoise.reblur import spec_magic_curve
 from nrdsample_tpu_torch.ops import traversal
 from nrdsample_tpu_torch.render import emissive_is, gbuffer, trace_opaque
 from nrdsample_tpu_torch.scene import camera
-from torch_session_cache import session_cached
+from torch_session_cache import session_cached, share_cores_between_workers
+
+share_cores_between_workers()
 
 OUTLIER_FRAC = 0.005
 DECODE_TOL = 1e-5

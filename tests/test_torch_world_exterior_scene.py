@@ -13,8 +13,9 @@ are held as ``tests/test_torch_cluster.py`` holds them (hit/miss equal,
 ``tri`` equal except float64-proven ties, t within 1e-4 against the
 interpret-mode kernel).
 
-Cases marked ``cuda`` hold the streaming kernel against the plain scan and
-against the resident kernel on the card, and skip where there is none.
+Cases marked ``cuda`` hold the streaming kernel against the plain scan on
+the card, also on every ray where it differs from the resident kernel, and
+skip where there is none.
 
 The slice-4 test files are named ``test_torch_world_*`` so that they sort
 after the other port files: the suite runs files in name order, and its
@@ -35,6 +36,9 @@ from nrdsample_tpu_torch import native
 from nrdsample_tpu_torch.ops import cluster, intersect, packet, traversal
 from nrdsample_tpu_torch.render import emissive_is
 from nrdsample_tpu_torch.scene import bvh, procedural
+from torch_session_cache import jax_native_order_ready, share_cores_between_workers
+
+share_cores_between_workers()
 
 SMALL = dict(cobbles=8, tree_count=6, tree_res=8, lamp_count=4)
 SIZES = {"small": SMALL, "default": {}}
@@ -94,12 +98,25 @@ def test_native_order_equals_numpy_order_on_shader_balls():
                                   bvh.build_order(tmin, tmax, 8))
 
 
+def test_jax_native_order_ready_drops_a_cached_none(tmp_path_factory, monkeypatch):
+    """A process whose JAX loader cached ``None`` (it lost the compile race)
+    gets the C++ builder back from the helper, and keeps it."""
+    from nrdsample_tpu import native as jnative
+
+    monkeypatch.setitem(jnative._LIBS, "bvh_builder", None)
+    assert jnative.get_lib() is None
+    lib = jax_native_order_ready(tmp_path_factory)
+    assert lib is not None and jnative.get_lib() is lib
+    assert jnative.build_order(np.zeros((3, 3), np.float32), np.ones((3, 3), np.float32)) is not None
+
+
 @pytest.mark.parametrize("size", sorted(SIZES))
-def test_scene_contexts_match_jax(size):
+def test_scene_contexts_match_jax(size, tmp_path_factory):
     """Both ranges' modes, orders, offsets and ClusterSets, the merged
     triangles and the emissive remap equal the JAX package's exactly; on
     the default exterior this is the order of the C++ builder over 176,932
     opaque triangles, where the numpy build orders 168 triangles otherwise."""
+    jax_native_order_ready(tmp_path_factory)
     (jctxs, jscene), (ctxs, scene) = _contexts(size)
     for jctx, ctx in ((jctxs.opaque, ctxs.opaque), (jctxs.transparent, ctxs.transparent)):
         assert ctx.mode == jctx.mode == "cluster" and ctx.tri_offset == jctx.tri_offset
@@ -116,10 +133,11 @@ def test_scene_contexts_match_jax(size):
     assert ctxs.opaque.emissive is None and getattr(jctxs.opaque, "emissive", None) is None
 
 
-def test_emissive_cluster_set_matches_jax(monkeypatch):
+def test_emissive_cluster_set_matches_jax(monkeypatch, tmp_path_factory):
     """The emissive ClusterSet and its luminance, against the JAX package's
     build on the TPU path."""
     jscene, scene = _scenes("small")
+    jax_native_order_ready(tmp_path_factory)
     monkeypatch.setattr(jtraversal, "_tpu_platform", lambda: True)
     want = jemissive_is.build_emissive_clusters(jscene)
     cs, lum = emissive_is.emissive_cluster_set(scene)
@@ -149,8 +167,9 @@ def test_cpu_probe_of_many_emitters_matches_jax():
 
 
 @pytest.fixture(scope="module")
-def small_clusters():
+def small_clusters(tmp_path_factory):
     jscene, scene = _scenes("small")
+    jax_native_order_ready(tmp_path_factory)
     jcs, _, _ = jcluster.build_clusters(jscene.tris)
     cs, tris, _ = cluster.build_clusters(scene.tris)
     return jcs, cs, tris
@@ -198,10 +217,10 @@ def _t64(o, d, tris, j):
     return float(e2 @ np.cross(o.astype(np.float64) - p0, e1)) / float(e1 @ pv)
 
 
-def _assert_hits_agree(got, want, o, d, tris, tol):
+def _assert_hits_agree(got, want, o, d, tris, tol, max_share=0.01):
     np.testing.assert_array_equal(got["tri"] >= 0, want["tri"] >= 0)
     differ = np.nonzero(got["tri"] != want["tri"])[0]
-    assert len(differ) <= 0.01 * len(o)
+    assert len(differ) <= max_share * len(o)
     for i in differ:
         ta = _t64(o[i], d[i], tris, int(got["tri"][i]))
         tb = _t64(o[i], d[i], tris, int(want["tri"][i]))
@@ -279,14 +298,35 @@ def test_streaming_kernel_matches_plain_on_card(cuda_device, small_clusters, mon
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
-def test_streaming_kernel_equals_resident_kernel_on_card(cuda_device, small_clusters, any_hit):
-    """On the same worklists the two kernels walk the same clusters in the
-    same order with the same arithmetic: their results are identical."""
-    _, cs, _ = small_clusters
+def test_streaming_kernel_differs_from_resident_kernel_only_where_right_on_card(
+        cuda_device, small_clusters, any_hit):
+    """On the same worklists the streaming kernel's rays test a subset of
+    the clusters the resident kernel's packet walk tests (a ray only those
+    whose box entry is below its best t), so the two may differ. On every
+    ray where they differ, the streaming kernel agrees with the plain scan
+    (float64-proven ties allowed); in any-hit mode the blocked flags."""
+    _, cs, tris = small_clusters
     cs = cs.to(cuda_device)
     o, d, tm = (torch.from_numpy(a).to(cuda_device) for a in _rays(50_048, 7))
     order, keys = packet._block_worklists_super(o, d, cs, tm)
-    a = packet.launch_stream(cs, o, d, tm, order, keys, any_hit)
+    a = packet.launch_stream(cs, o, d, tm, order, keys, any_hit, not any_hit)
     b = packet.launch(cs, o, d, tm, order, keys, any_hit)
-    for k in a:
-        assert torch.equal(a[k], b[k]), k
+    if any_hit:
+        blocked = (a["tri"] >= 0) & (a["t"] < tm)
+        differ = torch.nonzero(blocked != ((b["tri"] >= 0) & (b["t"] < tm))).flatten()
+        assert len(differ) <= 0.01 * len(o)
+        if len(differ):
+            want = cluster.any_hit_clustered(cs, o[differ], d[differ], tm[differ])
+            assert torch.equal(blocked[differ], want)
+        return
+    differ = torch.nonzero(torch.stack([a[k] != b[k] for k in ("t", "u", "v", "tri")]).any(0))
+    differ = differ.flatten()
+    assert len(differ) <= 0.01 * len(o)
+    if len(differ):
+        want = cluster.closest_hit_clustered(cs, o[differ], d[differ], tm[differ])
+        # every differing ray may be a tie: no cap on their share
+        _assert_hits_agree({k: v[differ].cpu().numpy() for k, v in a.items()},
+                           {k: v.cpu().numpy() for k, v in want.items()},
+                           o[differ].cpu().numpy(), d[differ].cpu().numpy(),
+                           {k: getattr(tris, k).numpy() for k in ("p0", "e1", "e2")}, 1e-6,
+                           max_share=1.0)

@@ -37,7 +37,9 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.denoise import atrous_cuda, taa_cuda, taccum_cuda
 from nrdsample_tpu_torch.ops import dense_cuda, emissive_probe, packet, reproject
 from nrdsample_tpu_torch.pipeline import bench_configs, frame
-from torch_session_cache import session_cached
+from torch_session_cache import jax_native_order_ready, session_cached, share_cores_between_workers
+
+share_cores_between_workers()
 
 OUTLIER_FRAC = 0.005
 MEAN_REL = 1e-3
@@ -70,6 +72,7 @@ def _outlier_frac(ref, got):
 
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
+    jax_native_order_ready(tmp_path_factory)
     return session_cached(tmp_path_factory, "torch_frame_exterior", _frames)
 
 

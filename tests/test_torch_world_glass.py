@@ -37,6 +37,9 @@ from nrdsample_tpu_torch.mathlib import geometry as geo
 from nrdsample_tpu_torch.ops import sharc, traversal
 from nrdsample_tpu_torch.pipeline import frame
 from nrdsample_tpu_torch.render import sharc_update, trace_transparent as tt
+from torch_session_cache import jax_native_order_ready, share_cores_between_workers
+
+share_cores_between_workers()
 
 OUTLIER_FRAC = 0.005
 
@@ -54,8 +57,9 @@ def _np_leaves(obj):
     return out
 
 
-def _both(jscene):
+def _both(jscene, tmp_path_factory):
     """(JAX SceneContexts, scene), (port SceneContexts, scene) of one scene."""
+    jax_native_order_ready(tmp_path_factory)
     port = traversal.build_scene_contexts(convert.scene_from_numpy(_np_leaves(jscene), device="cpu"),
                                           device="cpu")
     return jtraversal.build_scene_contexts(jscene), port
@@ -106,11 +110,11 @@ def _two_pane_scene(tint=(0.5, 0.8, 1.0), pane_size=100.0):
     return jproc._assemble(parts, mats)
 
 
-def test_shadow_translucency_march_matches_jax():
+def test_shadow_translucency_march_matches_jax(tmp_path_factory):
     """Straight-up rays (translucency (0.9 tint)^2, first layer at 0.9, as
     the JAX package's analytic test) and 2,000 random upward rays from the
     floor, some grazing."""
-    (jctxs, jscene), (ctxs, scene) = _both(_two_pane_scene())
+    (jctxs, jscene), (ctxs, scene) = _both(_two_pane_scene(), tmp_path_factory)
     assert ctxs.transparent.tri_offset == jctxs.transparent.tri_offset > 0
     rs = np.random.RandomState(2)
     n = 2000
@@ -150,8 +154,8 @@ def _mirror_pocket_scene():
 
 
 @pytest.fixture(scope="module")
-def mirror_pocket():
-    (jctxs, jscene), (ctxs, scene) = _both(_mirror_pocket_scene())
+def mirror_pocket(tmp_path_factory):
+    (jctxs, jscene), (ctxs, scene) = _both(_mirror_pocket_scene(), tmp_path_factory)
     jcam = jlook_at([0.0, -4.0, 0.0], [0.0, 4.0, 0.0], fov_y_deg=25.0)
     cam = convert.camera_from_numpy(_np_leaves(jcam), device="cpu")
     js = JSettings(sun_elevation=jnp.float32(45.0))
@@ -207,11 +211,11 @@ def test_full_probe_trace_matches_jax(mirror_pocket):
     assert (got_keys != want_keys).mean() <= 0.005
 
 
-def test_trace_transparent_color_matches_jax():
+def test_trace_transparent_color_matches_jax(tmp_path_factory):
     """The glass delta chains of the glass Cornell box (one 2N wavefront,
     the deferred end shadow with the sun on) against the JAX package's, from
     the same opaque hit distances."""
-    (jctxs, jscene), (ctxs, scene) = _both(jproc.cornell_box_glass())
+    (jctxs, jscene), (ctxs, scene) = _both(jproc.cornell_box_glass(), tmp_path_factory)
     assert ctxs.transparent.mode == "dense" and ctxs.transparent.tri_offset > 0
     res = 32
     jcam = jlook_at([0.0, -3.2, 1.0], [0.0, 0.0, 1.0], fov_y_deg=39.0)
