@@ -17,9 +17,9 @@ main path went through its kernels, compares card frames with CPU frames
 and the cornellbox-000 golden, and prints one JSON line of kernels plus a
 final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
 with no result line. Needs a CUDA device; imports nothing of JAX. The option
-builds an older tree's streaming packet, resident packet and bilinear gather
-kernels from their sources and times them beside this tree's on the same
-inputs; the default run does not take it.
+builds the parent tree's resident packet, streaming packet and bilinear
+gather kernels from their sources and times them beside this tree's on the
+same inputs; the default run does not take it.
 """
 
 from __future__ import annotations
@@ -51,29 +51,33 @@ FRAME_MEAN_REL = 1e-3
 # every add is an instruction of its own: 33.5e12 such operations a second.
 HBM_BYTES_PER_S = 3.35e12
 F32_UNFUSED_OPS_PER_S = 33.5e12
-# float32 operations of one ray/triangle test of moller_trumbore.cuh and the
-# best-hit compare, the divide counted as one: pvec, qvec (9 each), det, u,
-# v, t (5 each, plus 1 scaling by 1/det for u, v and t), the |det| test, the
-# divide, tvec (3), the 4 compares and 1 add of the hit test, t < best
-MT_OPS = 9 + 9 + 4 * 5 + 3 + 1 + 1 + 3 + 5 + 1
-# float32 operations per pixel of the denoiser kernels, counted from their
-# sources (exp, pow, sqrt and a divide count as one; index arithmetic and the
-# taccum kernel's recomputed 1-pixel ring do not count):
-# - relax_taccum: anti-firefly 9 luminances (5 each), 16 min/max, clamp 2,
-#   divide, scale 3 = 67; the gather's position 6 and 10 channels x 15 = 156;
-#   disocclusion, on-screen and confidence 20; accumulation (min, divide,
-#   luminance, square, 5 blends of 4) 28; the 3x3 variance 27 + 7 = 34
-TACCUM_OPS = 67 + 156 + 20 + 28 + 34
-# - relax_atrous: per tap luminance 5, depth weight 6 (sub, abs, 2 mul,
-#   divide, exp), normal weight 8 (dot 5, clamp 2, pow), luminance weight 4,
-#   weight 4, sums 10 = 37, times 9 taps; the centre 11, the end 6
-ATROUS_OPS = 9 * 37 + 11 + 6
-# - taa_resolve: 3x3 moments 9 x 3 x 3 = 81 (25 x 9 = 225 on wide pixels,
-#   counted per pixel of the run's mask), mean and sigma 18, clamp 18,
-#   [0, 1] clamps 12, two CIELAB conversions 64, distance and JND 12, mix 4,
-#   on-screen 8, reset 1, output 9
-TAA_OPS = 81 + 18 + 18 + 12 + 64 + 12 + 4 + 8 + 1 + 9
-TAA_WIDE_EXTRA_OPS = 225 - 81
+# float32 instructions (FP32 ALU and MUFU; index arithmetic, loads and
+# control do not count) that the compiled kernels issue, read from
+# `python -m nrdsample_tpu_torch.sass_ops` (cuobjdump -sass of the built
+# library: sm_90a, --fmad=false, no fast math). Every expf, powf, sqrtf and
+# IEEE divide counts as the sequence it compiles to; the divide's and sqrt's
+# slow-path subroutines, which run only for operands outside the fast
+# path's range, do not count, while the special-case branches inlined in
+# powf do (a static count, so a few percent above the executed path).
+# One Möller-Trumbore test with its best-hit fold, per kernel: 61 in
+# dense_hit_kernel's triangle loop (one MUFU.RCP a test), 58 in
+# emissive_probe_kernel's, 932 per 16 tests in the packet kernels' cluster
+# loop (test_cluster of packet_walk.cuh). Was 52 with the divide as one.
+MT_OPS = {"dense_hit": 61, "emissive_probe": 58, "packet": 932 / 16}
+# Per pixel of the denoiser kernels:
+# - relax_taccum: 256 for one accumulation (the body of the 18x18 ring loop;
+#   the recomputed ring does not count) and 34 for the 3x3 variance after it
+#   (was 305 counted from the source)
+TACCUM_OPS = 256 + 34
+# - relax_atrous: 372 per row of 3 taps (the loop over the rows; a tap's 2
+#   expf, powf and 2 divides among them), times 3, and 28 outside it (was 350
+#   with exp, pow and a divide as one)
+ATROUS_OPS = 3 * 372 + 28
+# - taa_resolve: 9 per tap of the 3x3 moments (3 adds, 3 multiplies, 3 adds;
+#   the 5x5 on wide pixels adds 16 taps, counted per pixel of the run's mask)
+#   and 491 outside the moment loops (6 powf and 4 sqrtf among them; was 146)
+TAA_OPS = 9 * 9 + 491
+TAA_WIDE_EXTRA_OPS = 16 * 9
 KITCHEN_FRAMES = 4
 EXTERIOR_FRAMES = 3
 EXTERIOR_DIVERGENT_RAYS = 786_432   # a sorted bounce-sized set on the exterior
@@ -257,11 +261,12 @@ def warp_walk_tests(cs, o, d, t_max, res: dict, any_hit: bool, chunk: int = 1 <<
 
 
 def build_old_lib(csrc: str):
-    """Build an older tree's packet and gather kernels (``csrc`` is its
+    """Build the parent tree's packet and gather kernels (``csrc`` is its
     kernel source directory) with the port's nvcc flags into a library of
     their own under the ignored build directory, for timing beside the
-    port's kernels; never called on the main path. The older streaming
-    kernel walks one list per packet and takes no cluster bounds."""
+    port's kernels; never called on the main path. The parent's resident
+    kernel walks one list per packet and takes neither the cluster bounds
+    nor need_uv; its streaming kernel takes the port's arguments."""
     import ctypes
     import hashlib
 
@@ -270,7 +275,7 @@ def build_old_lib(csrc: str):
     sources = [os.path.join(csrc, f)
                for f in ("packet_hit.cu", "packet_hit_stream.cu", "bilinear_sample.cu")]
     h = hashlib.sha256()
-    for src in sources:
+    for src in sources + [os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh")]:
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(_kernels.BUILD_DIR, f"compare_old_{h.hexdigest()[:16]}.so")
@@ -283,36 +288,38 @@ def build_old_lib(csrc: str):
     lib = ctypes.CDLL(out)
     p, i32, i64 = _kernels._P, _kernels._I32, _kernels._I64
     # origin, direction, t_max, order, keys, slab, n_clusters, n_packets,
-    # any_hit[, need_uv], t, u, v, tri, stream
-    lib.nrd_packet_hit_stream.argtypes = [p] * 6 + [i32, i64, i32, i32] + [p] * 5
+    # any_hit, t, u, v, tri, stream
     lib.nrd_packet_hit.argtypes = [p] * 6 + [i32, i64, i32] + [p] * 5
+    lib.nrd_packet_hit_stream.argtypes = _kernels.SIGNATURES["nrd_packet_hit_stream"]
     lib.nrd_bilinear_sample.argtypes = _kernels.SIGNATURES["nrd_bilinear_sample"]
     for f in (lib.nrd_packet_hit_stream, lib.nrd_packet_hit, lib.nrd_bilinear_sample):
         f.restype = ctypes.c_int
     return lib
 
 
-def launch_old(lib, symbol: str, cs, o, d, tm, order, keys, any_hit: bool, *extra) -> dict:
-    """Launch the older tree's packet kernel ``symbol`` on the port's packet
-    kernel arguments; ``extra`` are the flags after any_hit."""
+def launch_old(lib, symbol: str, cs, o, d, tm, order, keys, boxes: bool, *flags) -> dict:
+    """Launch the parent tree's packet kernel ``symbol`` on the port's packet
+    kernel arguments: the cluster bounds after the slab where ``boxes``, then
+    the flags (any_hit[, need_uv])."""
     from nrdsample_tpu_torch.ops import _kernels
 
     r = o.shape[0]
     out = {k: torch.empty(r, dtype=torch.int32 if k == "tri" else torch.float32, device=o.device)
            for k in ("t", "u", "v", "tri")}
+    bounds = [cs.bounds_min.data_ptr(), cs.bounds_max.data_ptr()] if boxes else []
     rc = getattr(lib, symbol)(o.data_ptr(), d.data_ptr(), tm.data_ptr(), order.data_ptr(),
-                              keys.data_ptr(), cs.slab.data_ptr(), cs.count, r // 128,
-                              int(any_hit), *extra, out["t"].data_ptr(), out["u"].data_ptr(),
+                              keys.data_ptr(), cs.slab.data_ptr(), *bounds, cs.count, r // 128,
+                              *(int(f) for f in flags), out["t"].data_ptr(), out["u"].data_ptr(),
                               out["v"].data_ptr(), out["tri"].data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     _kernels.check(rc, symbol)
     return out
 
 
-#: the previous streaming kernel (one walk per 128-ray packet) on exterior720's
-#: sets (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W), quoted when no older
-#: source is given to compare with
-PACKET_WALK_STREAM_MS = {"primary": 8.244, "divergent": 277.126, "any_hit": 263.410}
+#: the parent tree's streaming kernel on exterior720's sets (PERF.md §6;
+#: NVIDIA H100 80GB HBM3, 700.00 W), quoted when no parent source is given
+#: to compare with
+PARENT_STREAM_MS = {"primary": 2.820, "divergent": 21.262, "any_hit": 14.716}
 
 
 def check_stream_kernel(cs, tris, cam, cfg, dev, card, old_lib=None) -> dict:
@@ -321,13 +328,13 @@ def check_stream_kernel(cs, tris, cam, cfg, dev, card, old_lib=None) -> dict:
     (re-binned by morton order, as the frame does) and the any-hit mode on
     that set, each held against the plain scan on 2^17 rays drawn from the
     set, then timed alone on stage 1's worklists beside the resident kernel
-    on the same inputs. Where the two kernels differ (the warp walk tests a
-    per-ray subset of what the packet walk tests), the streaming kernel must
-    agree with the plain scan on those rays too. ``old_lib`` (the previous
-    design's kernels built from their source) is timed beside it when given,
-    else the previous times are quoted. Returns {case: (max |err|, stream
-    ms, plain ms, bound, subset size, resident ms, stage-1 ms, previous ms,
-    whether the previous ms was measured in this call)}."""
+    on the same inputs. The two kernels share their walk, so their results
+    must be identical on every ray. ``old_lib`` (the parent tree's kernels
+    built from their source) is timed beside it when given, and its
+    streaming kernel's results must be identical too; else the parent's
+    times are quoted. Returns {case: (max |err|, stream ms, plain ms, bound,
+    subset size, resident ms, stage-1 ms, parent ms, whether the parent ms
+    was measured in this call)}."""
     from nrdsample_tpu_torch.ops import cluster, packet, traversal
     from nrdsample_tpu_torch.scene import camera
 
@@ -358,92 +365,64 @@ def check_stream_kernel(cs, tris, cam, cfg, dev, card, old_lib=None) -> dict:
             fail(f"the {case} rays did not take the streaming kernel")
         sub = torch.from_numpy(np.sort(np.random.RandomState(7).choice(n, PLAIN_SUBSET,
                                                                         replace=False))).to(dev)
-
-        def against_plain(res, idx):
-            """(tri or blocked differences, max |err|, ok, hits, plain ms) of
-            res on rays idx against the plain scan."""
-            so, sd, stm = ro[idx], rd[idx], rtm[idx]
-            if any_hit:
-                ms, ref = once_ms(lambda: cluster.any_hit_clustered(cs, so, sd, stm))
-                blocked = (res["tri"][idx] >= 0) & (res["t"][idx] < stm)
-                return (int((blocked != ref).sum()), 0.0, bool(torch.equal(blocked, ref)),
-                        int(ref.sum()), ms)
-            ms, ref = once_ms(lambda: cluster.closest_hit_clustered(cs, so, sd, stm))
-            bad, err, ok = compare_hits({k: v[idx] for k, v in res.items()}, ref, so, sd, tris)
-            return bad, err, ok, int((ref["tri"] >= 0).sum()), ms
-
-        tri_bad, err, ok, hits, plain_ms = against_plain(got, sub)
+        so, sd, stm = ro[sub], rd[sub], rtm[sub]
+        if any_hit:
+            plain_ms, ref = once_ms(lambda: cluster.any_hit_clustered(cs, so, sd, stm))
+            blocked = (got["tri"][sub] >= 0) & (got["t"][sub] < stm)
+            tri_bad, err, ok = int((blocked != ref).sum()), 0.0, bool(torch.equal(blocked, ref))
+            hits = int(ref.sum())
+        else:
+            plain_ms, ref = once_ms(lambda: cluster.closest_hit_clustered(cs, so, sd, stm))
+            tri_bad, err, ok = compare_hits({k: v[sub] for k, v in got.items()}, ref, so, sd, tris)
+            hits = int((ref["tri"] >= 0).sum())
         # the kernels alone on stage 1's worklists of the rays in packet order
         perm = (torch.sort(packet._morton_sort_keys(ro, rd, cs), stable=True).indices if sort
                 else torch.arange(n, device=dev))
         ko, kd, ktm = ro[perm].contiguous(), rd[perm].contiguous(), rtm[perm].contiguous()
         order, keys = packet.worklists(ko, kd, cs, ktm)
-        a = packet.launch_stream(cs, ko, kd, ktm, order, keys, any_hit, not any_hit)
-        b = packet.launch(cs, ko, kd, ktm, order, keys, any_hit)
+        args = (cs, ko, kd, ktm, order, keys, any_hit, not any_hit)
+        a = packet.launch_stream(*args)
+        b = packet.launch(*args)
         torch.cuda.synchronize()
-        # rays (in the callers' order) where the two kernels differ, and why
-        if any_hit:
-            differ = ((a["tri"] >= 0) & (a["t"] < ktm)) != ((b["tri"] >= 0) & (b["t"] < ktm))
-        else:
-            differ = torch.stack([a[k] != b[k] for k in ("t", "u", "v", "tri")]).any(0)
-        idx = perm[torch.nonzero(differ).flatten()]
-        a_cal = {k: torch.empty_like(v).index_copy_(0, perm, v) for k, v in a.items()}
-        b_cal = {k: torch.empty_like(v).index_copy_(0, perm, v) for k, v in b.items()}
-        n_diff = int(idx.numel())
-        why = ""
-        if n_diff:
-            d_bad, d_err, d_ok = against_plain(a_cal, idx)[:3]
-            r_bad, _, r_ok = against_plain(b_cal, idx)[:3]
-            ok = ok and d_ok
-            err = max(err, d_err)
-            why = (f": on them the streaming kernel {'agrees' if d_ok else 'DISAGREES'} with the "
-                   f"plain scan ({d_bad} {'blocked flags off' if any_hit else 'tri differences'}, "
-                   f"float64-proven ties allowed); the resident kernel "
-                   + ("agrees too, so they differ by ties between the two walk orders" if r_ok
-                      else f"does not on {r_bad if r_bad >= 0 else 'the hit/miss of some'}: "
-                           f"hits in clusters the ray enters at or past its best t, which the "
-                           f"cull and the plain scan skip"))
-        ms = graph_ms(lambda: packet.launch_stream(cs, ko, kd, ktm, order, keys, any_hit,
-                                                   not any_hit))
-        res_ms = graph_ms(lambda: packet.launch(cs, ko, kd, ktm, order, keys, any_hit))
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            fail(f"the streaming and resident kernels differ on the same worklists ({case})")
+        ms = graph_ms(lambda: packet.launch_stream(*args))
+        res_ms = graph_ms(lambda: packet.launch(*args))
         stage1_ms = median_ms(lambda: packet.worklists(ko, kd, cs, ktm), reps=3)
         tests = packet_tests_needed(cs, ro, rd, rtm, got, any_hit, chunk=1 << 14)
-        walk = packet_walk_tests(keys, b["t"], packet.BLOCK_RAYS)
+        walk = packet_walk_tests(keys, a["t"], packet.BLOCK_RAYS)
         warp_lb = warp_walk_tests(cs, ko, kd, ktm, a, any_hit)
-        bnd = bound_ms(n * (28 + 16) + order.numel() * 8 + cs.slab.numel() * 4, tests * MT_OPS)
+        bnd = bound_ms(n * (28 + 16) + order.numel() * 8 + cs.slab.numel() * 4,
+                       tests * MT_OPS["packet"])
         if old_lib is not None:
-            old = launch_old(old_lib, "nrd_packet_hit_stream", cs, ko, kd, ktm, order, keys,
-                             any_hit, int(not any_hit))
-            old_res = launch_old(old_lib, "nrd_packet_hit", cs, ko, kd, ktm, order, keys, any_hit)
+            old = launch_old(old_lib, "nrd_packet_hit_stream", cs, ko, kd, ktm, order, keys, True,
+                             any_hit, not any_hit)
             torch.cuda.synchronize()
-            same_res = all(torch.equal(old_res[k], b[k]) for k in ("t", "u", "v", "tri"))
+            if not all(torch.equal(old[k], a[k]) for k in a):
+                fail(f"the streaming kernel's results changed from the parent's build ({case})")
             old_ms = graph_ms(lambda: launch_old(old_lib, "nrd_packet_hit_stream", cs, ko, kd,
-                                                 ktm, order, keys, any_hit, int(not any_hit)))
-            old_src = (f"built from its source, measured in this call; the previous resident "
-                       f"kernel {'identical' if same_res else 'DIFFERENT'} to this tree's")
+                                                 ktm, order, keys, True, any_hit, not any_hit))
+            old_src = "built from its source, measured in this call, results identical"
             old_measured = True
-            if not same_res:
-                fail(f"the resident packet kernel's results changed ({case})")
-            del old, old_res
+            del old
         else:
-            old_ms, old_src, old_measured = (PACKET_WALK_STREAM_MS[case],
+            old_ms, old_src, old_measured = (PARENT_STREAM_MS[case],
                                              "quoted from PERF.md, not measured in this call",
                                              False)
         print(f"[packet_hit_stream] exterior {case} C={cs.count} N={n} sort={sort} "
               f"any_hit={any_hit}: {'blocked' if any_hit else 'hits'} {hits} of {PLAIN_SUBSET} "
               f"checked, tri (or blocked) differences {tri_bad} (float64-proven ties allowed), "
-              f"max|err| t/u/v {err:.3g}; the streaming and resident kernels differ on {n_diff} "
-              f"rays{why} | streaming kernel {ms:.3f} ms (the previous packet walk "
-              f"{old_ms:.3f} ms, "
-              f"{old_src}), resident kernel {res_ms:.3f} ms at N={n} (stage 1 "
-              f"{stage1_ms:.3f} ms), plain {plain_ms:.3f} ms at N={PLAIN_SUBSET}, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}, {tests} tests needed; the packet walk makes {walk}, "
-              f"the warp walk at least {warp_lb}) ({card})")
+              f"max|err| t/u/v {err:.3g}; the resident kernel identical on all {n} rays | "
+              f"streaming kernel {ms:.3f} ms (the parent's build {old_ms:.3f} ms, {old_src}), "
+              f"resident kernel {res_ms:.3f} ms at N={n} (stage 1 {stage1_ms:.3f} ms), plain "
+              f"{plain_ms:.3f} ms at N={PLAIN_SUBSET}, bound {bnd[0]:.4f} ms ({bnd[1]}, {tests} "
+              f"tests needed; the packet walk would make {walk}, the warp walk at least "
+              f"{warp_lb}) ({card})")
         if not ok or hits == 0:
             fail(f"streaming packet kernel disagrees with its plain version ({case})")
         out[case] = (err, ms, plain_ms, bnd, PLAIN_SUBSET, res_ms, stage1_ms, old_ms,
                      old_measured)
-        del got, ko, kd, ktm, order, keys, a, b, a_cal, b_cal
+        del got, ko, kd, ktm, order, keys, a, b
     return out
 
 
@@ -452,12 +431,12 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", metavar="DIR",
-                    help="the csrc directory of an older tree whose streaming kernel walks one "
-                         "list per packet and takes no cluster bounds (e.g. `git archive 85ec5de "
-                         "nrdsample_tpu_torch/csrc`): its streaming kernel and gather are timed "
-                         "beside "
-                         "this tree's on exterior720 and its resident kernel must give identical "
-                         "results (without it, the previous times are quoted from PERF.md)")
+                    help="the csrc directory of the parent tree, whose resident kernel walks "
+                         "one list per packet (`git archive aacc768 nrdsample_tpu_torch/csrc`): "
+                         "its resident kernel is timed beside this tree's on shaderballs512, its "
+                         "streaming kernel and gather on exterior720 and the gather shapes, and "
+                         "the last two must give identical results (without it, the parent's "
+                         "streaming times are quoted from PERF.md)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
@@ -566,7 +545,7 @@ def main() -> int:
             plain_ms = median_ms(lambda: intersect.intersect_dense(o, d, tr.p0, tr.e1, tr.e2, tm))
             hits = int((ref["tri"] >= 0).sum())
             bnd = bound_ms(RAYS_2X1080P * (24 + (4 if tm_name == "per-ray" else 0) + 16)
-                           + tr.count * 36, RAYS_2X1080P * tr.count * MT_OPS)
+                           + tr.count * 36, RAYS_2X1080P * tr.count * MT_OPS["dense_hit"])
             print(f"[dense_hit] {name} E={tr.count} N={RAYS_2X1080P} t_max={tm_name}: hits {hits} "
                   f"tri mismatches {tri_bad} max|err| t/u/v {err:.3g} | kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) ({card})")
@@ -583,7 +562,8 @@ def main() -> int:
     probe_ms = graph_ms(lambda: emissive_probe.light_probe_cuda(em, po, pd))
     probe_plain_ms = median_ms(lambda: emissive_probe.light_probe_plain(em, po, pd))
     n_em = em["p0"].shape[0]
-    probe_bound = bound_ms(PROBE_RAYS * (24 + 4) + n_em * 40, PROBE_RAYS * n_em * MT_OPS)
+    probe_bound = bound_ms(PROBE_RAYS * (24 + 4) + n_em * 40,
+                           PROBE_RAYS * n_em * MT_OPS["emissive_probe"])
     print(f"[emissive_probe] kitchen E={n_em} N={PROBE_RAYS}: lit {lit} "
           f"max|err| {probe_err:.3g} | kernel {probe_ms:.3f} ms, plain {probe_plain_ms:.3f} ms, "
           f"bound {probe_bound[0]:.3f} ms ({probe_bound[1]}) ({card})")
@@ -591,10 +571,11 @@ def main() -> int:
         fail("emissive probe kernel disagrees with its plain version")
     del o, d, bounded, po, pd, got, ref
 
-    # packet kernel on shaderballs512's scene (104 clusters): its coherent
-    # camera rays, a divergent shadow-sized set with per-ray t_max (re-binned
-    # by morton order, as the frame does), and the any-hit mode on that set;
-    # ctx, scene, cam and cfg are still shaderballs512's of phase 2
+    # the resident packet kernel on shaderballs512's scene (104 clusters): its
+    # coherent camera rays, a divergent shadow-sized set with per-ray t_max
+    # (re-binned by morton order, as the frame does), and the any-hit mode on
+    # that set, each held against the plain scan on every ray; ctx, scene,
+    # cam and cfg are still shaderballs512's of phase 2
     cs = ctx.clusters
     tris = {k: getattr(scene.tris, k).cpu().numpy() for k in ("p0", "e1", "e2")}
     pix = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
@@ -617,38 +598,61 @@ def main() -> int:
         n = ro.shape[0]
         got = packet.closest_hit_packet_cuda(cs, ro, rd, rtm, sort=sort, any_hit=any_hit)
         torch.cuda.synchronize()
-        sub = n if case == "primary" else PLAIN_SUBSET
-        so, sd, stm = ro[:sub], rd[:sub], rtm[:sub]
         if any_hit:
-            plain_ms, ref = once_ms(lambda: cluster.any_hit_clustered(cs, so, sd, stm))
-            blocked = (got["tri"][:sub] >= 0) & (got["t"][:sub] < stm)
+            plain_ms, ref = once_ms(lambda: cluster.any_hit_clustered(cs, ro, rd, rtm))
+            blocked = (got["tri"] >= 0) & (got["t"] < rtm)
             tri_bad, err, ok = int((blocked != ref).sum()), 0.0, bool(torch.equal(blocked, ref))
             hits = int(ref.sum())
         else:
-            plain_ms, ref = once_ms(lambda: cluster.closest_hit_clustered(cs, so, sd, stm))
-            tri_bad, err, ok = compare_hits({k: v[:sub] for k, v in got.items()}, ref, so, sd, tris)
+            plain_ms, ref = once_ms(lambda: cluster.closest_hit_clustered(cs, ro, rd, rtm))
+            tri_bad, err, ok = compare_hits(got, ref, ro, rd, tris)
             hits = int((ref["tri"] >= 0).sum())
-        # the kernel alone on stage 1's worklists of the rays in packet order
+        # the kernel alone on stage 1's worklists of the rays in packet order;
+        # with need_uv=False the same t and tri and zero u/v
         perm = (torch.sort(packet._morton_sort_keys(ro, rd, cs), stable=True).indices if sort
                 else torch.arange(n, device=dev))
         ko, kd, ktm = ro[perm].contiguous(), rd[perm].contiguous(), rtm[perm].contiguous()
-        order, keys = packet._block_worklists(ko, kd, cs, ktm)
+        order, keys = packet.worklists(ko, kd, cs, ktm)
+        res = packet.launch(cs, ko, kd, ktm, order, keys, any_hit)
+        no_uv = packet.launch(cs, ko, kd, ktm, order, keys, any_hit, need_uv=False)
+        torch.cuda.synchronize()
+        uv_ok = (torch.equal(no_uv["t"], res["t"]) and torch.equal(no_uv["tri"], res["tri"])
+                 and not bool(no_uv["u"].any()) and not bool(no_uv["v"].any()))
         ms = graph_ms(lambda: packet.launch(cs, ko, kd, ktm, order, keys, any_hit))
-        stage1_ms = median_ms(lambda: packet._block_worklists(ko, kd, cs, ktm))
+        no_uv_ms = graph_ms(lambda: packet.launch(cs, ko, kd, ktm, order, keys, any_hit,
+                                                  need_uv=False))
+        stage1_ms = median_ms(lambda: packet.worklists(ko, kd, cs, ktm))
         tests = packet_tests_needed(cs, ro, rd, rtm, got, any_hit)
-        walk = packet_walk_tests(keys, got["t"][perm], packet.BLOCK_RAYS)
-        bnd = bound_ms(n * (28 + 16) + (n // 128) * cs.count * 8 + cs.slab.numel() * 4,
-                       tests * MT_OPS)
+        walk = packet_walk_tests(keys, res["t"], packet.BLOCK_RAYS)
+        warp_lb = warp_walk_tests(cs, ko, kd, ktm, res, any_hit)
+        bnd = bound_ms(n * (28 + 16) + order.numel() * 8 + cs.slab.numel() * 4,
+                       tests * MT_OPS["packet"])
+        old = "the parent's packet walk not measured in this call"
+        old_ms = None
+        if old_lib is not None:
+            prev = launch_old(old_lib, "nrd_packet_hit", cs, ko, kd, ktm, order, keys, False,
+                              any_hit)
+            torch.cuda.synchronize()
+            n_diff = int((prev["tri"] != res["tri"]).sum())
+            old_ms = graph_ms(lambda: launch_old(old_lib, "nrd_packet_hit", cs, ko, kd, ktm, order,
+                                                 keys, False, any_hit))
+            old = (f"the parent's packet walk {old_ms:.3f} ms (built from its source, this call; "
+                   f"{ms / old_ms:.3f}x its time; tri differs on {n_diff} rays)")
+            del prev
         print(f"[packet_hit] {case} C={cs.count} N={n} sort={sort} any_hit={any_hit}: "
-              f"{'blocked' if any_hit else 'hits'} {hits} of {sub} checked, tri (or blocked) "
-              f"differences {tri_bad} (float64-proven ties allowed), max|err| t/u/v {err:.3g} | "
-              f"kernel {ms:.3f} ms at N={n} (stage 1 {stage1_ms:.3f} ms), plain {plain_ms:.3f} ms "
-              f"at N={sub}, bound {bnd[0]:.4f} ms ({bnd[1]}, {tests} tests needed per ray; "
-              f"the walk makes {walk}) ({card})")
+              f"{'blocked' if any_hit else 'hits'} {hits} of {n} checked, tri (or blocked) "
+              f"differences {tri_bad} (float64-proven ties allowed), max|err| t/u/v {err:.3g}, "
+              f"need_uv=False {'same t and tri, zero u/v' if uv_ok else 'DIFFERS'} | kernel "
+              f"{ms:.3f} ms at N={n} (need_uv=False {no_uv_ms:.3f} ms; stage 1 {stage1_ms:.3f} "
+              f"ms), {old}, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {tests} "
+              f"tests needed; the warp walk makes at least {warp_lb}, the packet walk {walk}) "
+              f"({card})")
         if not ok or hits == 0:
             fail(f"packet kernel disagrees with its plain version ({case})")
-        packet_res[case] = (err, ms, plain_ms, bnd, sub)
-    del vo, vd, vtm, got, ref, ko, kd, ktm, order, keys
+        if not uv_ok:
+            fail(f"packet kernel with need_uv=False differs ({case})")
+        packet_res[case] = (err, ms, plain_ms, bnd, n, old_ms)
+    del vo, vd, vtm, got, ref, ko, kd, ktm, order, keys, res, no_uv
 
     # bilinear gather kernel at the frame's gather shapes (SIGMA's (512, 512, 3)
     # and REBLUR's packed (512, 512, 9)), small and large motion, off-screen
@@ -696,13 +700,16 @@ def main() -> int:
                     o = torch.empty_like(ref)
                     _kernels.check(old_lib.nrd_bilinear_sample(
                         img.data_ptr(), 512, 512, c, pos.data_ptr(), pos.numel() // 2,
-                        o.data_ptr(), torch.cuda.current_stream().cuda_stream), "previous bilinear")
+                        o.data_ptr(), torch.cuda.current_stream().cuda_stream), "parent bilinear")
                     return o
 
                 same_old = torch.equal(previous(), got)
-                old = (f", the previous design {graph_ms(previous, reps=GATHER_REPS):.4f} ms "
+                old = (f", the parent's build {graph_ms(previous, reps=GATHER_REPS):.4f} ms "
                        f"(built from its source, this call; "
                        f"{'bit-equal' if same_old else 'NOT bit-equal'})")
+                if not same_old:
+                    fail(f"the bilinear kernel's results changed from the parent's build (C={c}, "
+                         f"{disp})")
             bnd = bound_ms(img.numel() * 4 + pos.numel() * 4 + got.numel() * 4, got.numel() * 10)
             print(f"[bilinear] (512, 512, {c}) displacement {disp} px: max|err| {err:.3g} "
                   f"({'bit-equal' if equal else 'NOT bit-equal'}) | kernel {ms:.4f} ms "
@@ -1137,10 +1144,16 @@ def main() -> int:
          "library_ms": None},
     ]
     print(f"[exterior720 summary] {exterior[0]:.3f} ms/frame, launches/frame {exterior[1]}; "
-          f"streaming kernel vs the previous packet walk vs resident kernel ms on the same "
+          f"streaming kernel vs the parent's build vs resident kernel ms on the same "
           f"worklists: "
           + ", ".join(f"{k} {v[1]:.3f} vs {v[7]:.3f}{'' if v[8] else ' (quoted)'} vs {v[5]:.3f}"
                       for k, v in stream_res.items())
+          + f" ({card})")
+    print("[packet_hit summary] shaderballs512 resident kernel vs the parent's packet walk ms "
+          "on the same worklists: "
+          + ", ".join(f"{k} {v[1]:.3f} vs "
+                      + (f"{v[5]:.3f} ({v[5] / v[1]:.2f}x faster)" if v[5] else "not measured")
+                      for k, v in packet_res.items())
           + f" ({card})")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))

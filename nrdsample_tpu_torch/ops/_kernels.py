@@ -29,6 +29,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
+_PACKET = [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _P, _P, _P, _P, _P]
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
     # origin, direction, p0, e1, e2, n_tris, t_max (nullable), t_max scalar,
@@ -36,13 +37,11 @@ SIGNATURES = {
     "nrd_dense_hit": [_P, _P, _P, _P, _P, _I32, _P, _F32, _I64, _P, _P, _P, _P, _P],
     # origin, direction, p0, e1, e2, intensity, n_tris, n_rays, out, stream
     "nrd_emissive_probe": [_P, _P, _P, _P, _P, _P, _I32, _I64, _P, _P],
-    # origin, direction, t_max, order, keys, slab, n_clusters, n_packets,
-    # any_hit, t, u, v, tri, stream
-    "nrd_packet_hit": [_P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P],
-    # origin, direction, t_max, order, keys, slab, bounds_min, bounds_max,
-    # n_clusters, n_packets, any_hit, need_uv, t, u, v, tri, stream
-    "nrd_packet_hit_stream": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _I32, _P, _P,
-                              _P, _P, _P],
+    # the two packet kernels: origin, direction, t_max, order, keys, slab,
+    # bounds_min, bounds_max, n_clusters, n_packets, any_hit, need_uv, t, u,
+    # v, tri, stream
+    "nrd_packet_hit": _PACKET,
+    "nrd_packet_hit_stream": _PACKET,
     # img, h, w, c, pos, n, out, stream
     "nrd_bilinear_sample": [_P, _I32, _I32, _I32, _P, _I64, _P, _P],
     # hist illum, moments, view_z, normal, frames; illum, view_z, normal, mv,

@@ -39,8 +39,11 @@ def light_probe_plain(em: dict, origin: torch.Tensor, direction: torch.Tensor) -
 def light_probe_cuda(em: dict, origin: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
     """Launch the probe kernel. origin/direction (N, 3) float32; em["p0"],
     em["e1"], em["e2"] (E, 3) and em["intensity"] (E,) float32, E <= 512,
-    all on one CUDA device. Returns (N,) float32."""
+    all on one CUDA device. Returns (N,) float32. Raises on an input that
+    requires grad: the kernel has no backward."""
     global LAUNCHES
+    _kernels.check_no_grad("light_probe_cuda", origin, direction,
+                           *(em[k] for k in ("p0", "e1", "e2", "intensity")))
     dev = origin.device
     if dev.type != "cuda":
         raise ValueError(f"light_probe_cuda needs CUDA tensors, got {dev}")

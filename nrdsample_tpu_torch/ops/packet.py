@@ -11,12 +11,13 @@ worklist: every cluster some ray of the packet may enter, sorted by a lower
 bound of the packet's entry distance. Up to ``FLAT_WORKLIST_MAX_C`` clusters
 the bound is exact (every ray against every cluster box); above, it is
 hierarchical (exact per-ray entries into the 8-cluster superclusters, refined
-by a per-packet interval test of each cluster), as in the JAX package. The
-resident kernel runs one thread block per packet and walks that list until
-the next entry is past every ray's best hit. The streaming kernel takes slabs
-larger than ``PACKET_VMEM_LIMIT``, the JAX package's rule; each of its warps
-walks the packet's list on its own, and a ray tests a cluster only while its
-entry into the cluster's box is below its best hit, the plain scan's rule.
+by a per-packet interval test of each cluster), as in the JAX package. Both
+kernels run the walk of ``csrc/packet_walk.cuh``: one thread block per
+packet, each of its warps walking the packet's list on its own, and a ray
+testing a cluster only while its entry into the cluster's box is below its
+best hit, the plain scan's rule. The streaming one takes slabs larger than
+``PACKET_VMEM_LIMIT``, the JAX package's rule; each keeps its own name and
+launch count.
 """
 
 from __future__ import annotations
@@ -185,9 +186,8 @@ def closest_hit_packet_cuda(cs: ClusterSet, origin, direction, t_max=T_MAX, sort
     every ray is blocked inside its t_max; a blocked ray then reports some
     blocker, not the closest. ``stream`` picks the streaming kernel (True),
     the resident one (False) or, with None, the streaming one when the slab
-    is larger than PACKET_VMEM_LIMIT. ``need_uv=False`` lets the streaming
-    kernel skip u/v (returned as zeros); the resident kernel always tracks
-    them."""
+    is larger than PACKET_VMEM_LIMIT. ``need_uv=False`` lets the kernels
+    skip u/v (returned as zeros)."""
     dev = origin.device
     if dev.type != "cuda":
         raise ValueError(f"closest_hit_packet_cuda needs CUDA tensors, got {dev}")
@@ -214,20 +214,17 @@ def closest_hit_packet_cuda(cs: ClusterSet, origin, direction, t_max=T_MAX, sort
         t_max = torch.cat([t_max, t_max.new_zeros(pad)])
     t_max = t_max.contiguous()
     order, keys = worklists(origin, direction, cs, t_max)
-    if stream:
-        res = launch_stream(cs, origin, direction, t_max, order, keys, any_hit, need_uv)
-    else:
-        res = launch(cs, origin, direction, t_max, order, keys, any_hit)
+    res = (launch_stream if stream else launch)(cs, origin, direction, t_max, order, keys,
+                                                 any_hit, need_uv)
     return {k: v[:r] for k, v in res.items()}
 
 
-def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, boxes: bool,
-            *flags) -> dict:
+def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, any_hit: bool,
+            need_uv: bool) -> dict:
     """Check the inputs of a packet kernel and launch it: (R, 3) rays with R
     a multiple of 128, (R,) t_max and stage 1's (R / 128, C) worklists, all
-    contiguous on one CUDA device; with ``boxes`` the kernel also takes the
-    (C, 3) cluster bounds after the slab. Returns dict(t, u, v, tri) of (R,)
-    tensors."""
+    contiguous on one CUDA device, beside the cluster slab and its (C, 3)
+    bounds. Returns dict(t, u, v, tri) of (R,) tensors."""
     dev = origin.device
     if dev.type != "cuda":
         raise ValueError(f"{symbol} needs CUDA tensors, got {dev}")
@@ -242,11 +239,8 @@ def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, 
     check("order", order, torch.int32, (r // BLOCK_RAYS, c), dev)
     check("keys", keys, f32, (r // BLOCK_RAYS, c), dev)
     check("slab", cs.slab, f32, (cs.slab.shape[0], 128), dev)
-    bounds = []
-    if boxes:
-        check("bounds_min", cs.bounds_min, f32, (c, 3), dev)
-        check("bounds_max", cs.bounds_max, f32, (c, 3), dev)
-        bounds = [cs.bounds_min.data_ptr(), cs.bounds_max.data_ptr()]
+    check("bounds_min", cs.bounds_min, f32, (c, 3), dev)
+    check("bounds_max", cs.bounds_max, f32, (c, 3), dev)
     t = torch.empty(r, dtype=f32, device=dev)
     u = torch.empty(r, dtype=f32, device=dev)
     v = torch.empty(r, dtype=f32, device=dev)
@@ -256,18 +250,19 @@ def _launch(symbol: str, cs: ClusterSet, origin, direction, t_max, order, keys, 
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, symbol)(origin.data_ptr(), direction.data_ptr(), t_max.data_ptr(),
                                   order.data_ptr(), keys.data_ptr(), cs.slab.data_ptr(),
-                                  *bounds, c, r // BLOCK_RAYS, *flags, t.data_ptr(), u.data_ptr(),
-                                  v.data_ptr(), tri.data_ptr(), stream)
+                                  cs.bounds_min.data_ptr(), cs.bounds_max.data_ptr(), c,
+                                  r // BLOCK_RAYS, int(any_hit), int(need_uv), t.data_ptr(),
+                                  u.data_ptr(), v.data_ptr(), tri.data_ptr(), stream)
     _kernels.check(rc, symbol)
     return {"t": t, "u": u, "v": v, "tri": tri}
 
 
-def launch(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit: bool = False) -> dict:
+def launch(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit: bool = False,
+           need_uv: bool = True) -> dict:
     """The resident kernel (``csrc/packet_hit.cu``) alone on stage 1's
     worklists; see ``_launch`` for the inputs."""
     global LAUNCHES
-    res = _launch("nrd_packet_hit", cs, origin, direction, t_max, order, keys, False,
-                  int(any_hit))
+    res = _launch("nrd_packet_hit", cs, origin, direction, t_max, order, keys, any_hit, need_uv)
     LAUNCHES += 1
     return res
 
@@ -277,7 +272,7 @@ def launch_stream(cs: ClusterSet, origin, direction, t_max, order, keys, any_hit
     """The streaming kernel (``csrc/packet_hit_stream.cu``) alone on stage 1's
     worklists; see ``_launch`` for the inputs."""
     global STREAM_LAUNCHES
-    res = _launch("nrd_packet_hit_stream", cs, origin, direction, t_max, order, keys, True,
-                  int(any_hit), int(need_uv))
+    res = _launch("nrd_packet_hit_stream", cs, origin, direction, t_max, order, keys, any_hit,
+                  need_uv)
     STREAM_LAUNCHES += 1
     return res

@@ -23,8 +23,10 @@ LAUNCHES = 0
 def sample_bilinear_cuda(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Launch the bilinear gather kernel: img (H, W) or (H, W, C) and pos
     (..., 2) contiguous float32 on one CUDA device. Returns (...) or
-    (..., C)."""
+    (..., C). Raises on an input that requires grad: the kernel has no
+    backward."""
     global LAUNCHES
+    _kernels.check_no_grad("sample_bilinear_cuda", img, pos)
     dev = img.device
     if dev.type != "cuda":
         raise ValueError(f"sample_bilinear_cuda needs CUDA tensors, got {dev}")

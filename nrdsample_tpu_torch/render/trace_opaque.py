@@ -36,10 +36,13 @@ def check_config_supported(cfg: RenderConfig) -> None:
         "enable_post (post chain, off the frame path)": cfg.enable_post,
         "on_screen != FINAL (debug views, a later slice)": cfg.on_screen != cfgmod.OnScreen.FINAL,
         "use_validation_overlay (a later slice)": cfg.use_validation_overlay,
-        "stress tests (slice 5)": (cfg.use_inf_stress_test or cfg.use_drs_stress_test
-                                   or cfg.use_firefly_test or cfg.use_material_id_test),
-        "use_sanitization (slice 5)": cfg.use_sanitization,
-        "use_hair_sss (slice 5)": cfg.use_hair_sss,
+        "stress tests (the record corpus, a later slice, ROADMAP Queue 1 item 3)":
+            (cfg.use_inf_stress_test or cfg.use_drs_stress_test or cfg.use_firefly_test
+             or cfg.use_material_id_test),
+        "use_sanitization (the record corpus, a later slice, ROADMAP Queue 1 item 3)":
+            cfg.use_sanitization,
+        "use_hair_sss (the record corpus, a later slice, ROADMAP Queue 1 item 3)":
+            cfg.use_hair_sss,
     }
     missing = [name for name, on in later.items() if on]
     if missing:

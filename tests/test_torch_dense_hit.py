@@ -31,7 +31,8 @@ import torch
 from nrdsample_tpu.ops import dense_pallas, emissive_probe as jprobe, intersect as jintersect
 from nrdsample_tpu.render import emissive_is as jem
 from nrdsample_tpu.scene import procedural as jproc
-from nrdsample_tpu_torch.ops import _kernels, dense_cuda, emissive_probe, intersect, traversal
+from nrdsample_tpu_torch.ops import (_kernels, dense_cuda, emissive_probe, intersect, reproject,
+                                     traversal)
 from nrdsample_tpu_torch.render import emissive_is
 from nrdsample_tpu_torch.scene import procedural
 from torch_session_cache import session_cached, share_cores_between_workers
@@ -247,6 +248,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         dense_cuda.closest_hit_dense_cuda(tris["p0"], tris["e1"], tris["e2"], o, d)
     em = dict(tris, intensity=torch.ones(tris["p0"].shape[0]))
     with pytest.raises(ValueError):
+        emissive_probe.light_probe_cuda(em, o, d)
+
+
+@pytest.mark.parametrize("wrapper", ["sample_bilinear_cuda", "light_probe_cuda"])
+def test_gather_and_probe_wrappers_refuse_grad(wrapper):
+    """The bilinear gather and the emissive probe kernels have no backward,
+    so an input that requires grad raises (their results would carry no
+    gradient); the check comes before the device check, so CPU tensors
+    show it."""
+    if wrapper == "sample_bilinear_cuda":
+        img = torch.rand(8, 8, 3, requires_grad=True)
+        pos = torch.rand(5, 2) * 8.0
+        with pytest.raises(NotImplementedError, match="requires grad"):
+            reproject.sample_bilinear_cuda(img, pos)
+        return
+    tris = {k: torch.from_numpy(v) for k, v in _tris("cornell_box").items()}
+    o, d = (torch.from_numpy(a) for a in _rays(10, 5, 3.0))
+    em = dict(tris, intensity=torch.ones(tris["p0"].shape[0], requires_grad=True))
+    with pytest.raises(NotImplementedError, match="requires grad"):
         emissive_probe.light_probe_cuda(em, o, d)
 
 

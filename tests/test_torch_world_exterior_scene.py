@@ -300,33 +300,14 @@ def test_streaming_kernel_matches_plain_on_card(cuda_device, small_clusters, mon
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_streaming_kernel_differs_from_resident_kernel_only_where_right_on_card(
         cuda_device, small_clusters, any_hit):
-    """On the same worklists the streaming kernel's rays test a subset of
-    the clusters the resident kernel's packet walk tests (a ray only those
-    whose box entry is below its best t), so the two may differ. On every
-    ray where they differ, the streaming kernel agrees with the plain scan
-    (float64-proven ties allowed); in any-hit mode the blocked flags."""
-    _, cs, tris = small_clusters
+    """On the same worklists the two kernels run the same walk
+    (csrc/packet_walk.cuh), so their results are identical on every ray;
+    the kernels' own cases hold them against the plain scan."""
+    _, cs, _ = small_clusters
     cs = cs.to(cuda_device)
     o, d, tm = (torch.from_numpy(a).to(cuda_device) for a in _rays(50_048, 7))
     order, keys = packet._block_worklists_super(o, d, cs, tm)
     a = packet.launch_stream(cs, o, d, tm, order, keys, any_hit, not any_hit)
-    b = packet.launch(cs, o, d, tm, order, keys, any_hit)
-    if any_hit:
-        blocked = (a["tri"] >= 0) & (a["t"] < tm)
-        differ = torch.nonzero(blocked != ((b["tri"] >= 0) & (b["t"] < tm))).flatten()
-        assert len(differ) <= 0.01 * len(o)
-        if len(differ):
-            want = cluster.any_hit_clustered(cs, o[differ], d[differ], tm[differ])
-            assert torch.equal(blocked[differ], want)
-        return
-    differ = torch.nonzero(torch.stack([a[k] != b[k] for k in ("t", "u", "v", "tri")]).any(0))
-    differ = differ.flatten()
-    assert len(differ) <= 0.01 * len(o)
-    if len(differ):
-        want = cluster.closest_hit_clustered(cs, o[differ], d[differ], tm[differ])
-        # every differing ray may be a tie: no cap on their share
-        _assert_hits_agree({k: v[differ].cpu().numpy() for k, v in a.items()},
-                           {k: v.cpu().numpy() for k, v in want.items()},
-                           o[differ].cpu().numpy(), d[differ].cpu().numpy(),
-                           {k: getattr(tris, k).numpy() for k in ("p0", "e1", "e2")}, 1e-6,
-                           max_share=1.0)
+    b = packet.launch(cs, o, d, tm, order, keys, any_hit, not any_hit)
+    for k in ("t", "u", "v", "tri"):
+        assert torch.equal(a[k], b[k]), k
