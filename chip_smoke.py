@@ -16,14 +16,19 @@ kernel, RELAX + SIGMA, TAA, SHARC with its FULL pass). It checks that each
 main path went through its kernels, compares card frames with CPU frames
 and the cornellbox-000 golden, and prints one JSON line of kernels plus a
 final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
-with no result line. Needs a CUDA device; imports nothing of JAX. The option
-builds the parent tree's resident packet, streaming packet and bilinear
-gather kernels from their sources and times them beside this tree's on the
-same inputs; the default run does not take it.
+with no result line. It also runs the backward of the three denoiser
+dispatchers on (1080, 1920) planes that require grad (the kernel's forward,
+the plain version's gradient) and the TAA kernel on the kitchen1080 frame's
+own wide mask. Needs a CUDA device; imports nothing of JAX. The option
+builds the parent tree's resident packet, streaming packet, bilinear
+gather, RELAX taccum and TAA resolve kernels from their sources and times
+them beside this tree's on the same inputs; the default run does not take
+it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -65,19 +70,26 @@ F32_UNFUSED_OPS_PER_S = 33.5e12
 # loop (test_cluster of packet_walk.cuh). Was 52 with the divide as one.
 MT_OPS = {"dense_hit": 61, "emissive_probe": 58, "packet": 932 / 16}
 # Per pixel of the denoiser kernels:
-# - relax_taccum: 256 for one accumulation (the body of the 18x18 ring loop;
-#   the recomputed ring does not count) and 34 for the 3x3 variance after it
-#   (was 305 counted from the source)
-TACCUM_OPS = 256 + 34
+# - relax_taccum: 211 for one accumulation (the body of the ring loop; the
+#   ring's recomputed positions do not count), 5 for the input luminance the
+#   anti-firefly reads (staged once per pixel) and 34 for the 3x3 variance:
+#   250, the smaller of this kernel's count and its parent's 256 + 34 (whose
+#   accumulation recomputed 9 input luminances, 45 instructions)
+TACCUM_OPS = 211 + 5 + 34
 # - relax_atrous: 372 per row of 3 taps (the loop over the rows; a tap's 2
 #   expf, powf and 2 divides among them), times 3, and 28 outside it (was 350
 #   with exp, pow and a divide as one)
 ATROUS_OPS = 3 * 372 + 28
 # - taa_resolve: 9 per tap of the 3x3 moments (3 adds, 3 multiplies, 3 adds;
 #   the 5x5 on wide pixels adds 16 taps, counted per pixel of the run's mask)
-#   and 491 outside the moment loops (6 powf and 4 sqrtf among them; was 146)
-TAA_OPS = 9 * 9 + 491
+#   and 78 for the clamp (3 sqrtf), the tests and the mix (this kernel's
+#   phases 1 and 3, read from sass_ops --out's disassembly); the CIELAB
+#   distance (6 powf, a sqrtf) only on the pixels that need it
+#   (taa_lab_pixels): 413, the parent's 491 + 81 per pixel less the 159 above
+#   (this kernel's list loop: 420)
+TAA_OPS = 9 * 9 + 78
 TAA_WIDE_EXTRA_OPS = 16 * 9
+TAA_LAB_OPS = 491 + 81 - TAA_OPS
 KITCHEN_FRAMES = 4
 EXTERIOR_FRAMES = 3
 EXTERIOR_DIVERGENT_RAYS = 786_432   # a sorted bounce-sized set on the exterior
@@ -149,6 +161,28 @@ def once_ms(fn):
     b.record()
     b.synchronize()
     return a.elapsed_time(b), out
+
+
+def taa_lab_pixels(cur, prev, mv_d, wide, reset_mix, sigma_scale: float) -> int:
+    """Pixels whose TAA resolve needs the CIELAB distance: the history and
+    the clamped history differ in [0, 1] (else the distance is exactly 0),
+    on screen and under a reset_mix below 1 (else the mix does not depend on
+    it). From the plain version's moments, which equal the kernel's."""
+    from nrdsample_tpu_torch.denoise import common, taa
+
+    mu, sigma = taa._moments(cur, 1)
+    if wide is not None:
+        mu5, sigma5 = taa._moments(cur, 2)
+        wm = (wide > 0.5)[..., None]
+        mu, sigma = torch.where(wm, mu5, mu), torch.where(wm, sigma5, sigma)
+    cl = torch.minimum(torch.maximum(prev, mu - sigma * sigma_scale), mu + sigma * sigma_scale)
+    differs = (prev.clamp(0.0, 1.0) != cl.clamp(0.0, 1.0)).any(-1)
+    on = common.in_screen(mv_d, *cur.shape[:2])
+    return int((differs & on & ~(reset_mix >= 1.0)).sum())
+
+
+def parent_ms(old_ms, ms) -> str:
+    return "not built" if old_ms is None else f"{old_ms:.4f} ms ({old_ms / ms:.2f}x)"
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -260,20 +294,24 @@ def warp_walk_tests(cs, o, d, t_max, res: dict, any_hit: bool, chunk: int = 1 <<
     return n * 32 * 128
 
 
+#: the parent tree's kernels that ``--old-csrc`` builds, with the port's C
+#: signatures
+OLD_SOURCES = ("packet_hit.cu", "packet_hit_stream.cu", "bilinear_sample.cu", "relax_taccum.cu",
+               "taa_resolve.cu")
+
+
 def build_old_lib(csrc: str):
-    """Build the parent tree's packet and gather kernels (``csrc`` is its
-    kernel source directory) with the port's nvcc flags into a library of
-    their own under the ignored build directory, for timing beside the
-    port's kernels; never called on the main path. The parent's resident
-    kernel walks one list per packet and takes neither the cluster bounds
-    nor need_uv; its streaming kernel takes the port's arguments."""
+    """Build the parent tree's packet, gather, RELAX taccum and TAA resolve
+    kernels (``csrc`` is its kernel source directory) with the port's nvcc
+    flags into a library of their own under the ignored build directory,
+    for timing beside the port's kernels; never called on the main path.
+    Each takes the port's C signature."""
     import ctypes
     import hashlib
 
     from nrdsample_tpu_torch.ops import _kernels
 
-    sources = [os.path.join(csrc, f)
-               for f in ("packet_hit.cu", "packet_hit_stream.cu", "bilinear_sample.cu")]
+    sources = [os.path.join(csrc, f) for f in OLD_SOURCES]
     h = hashlib.sha256()
     for src in sources + [os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh")]:
         with open(src, "rb") as f:
@@ -286,30 +324,53 @@ def build_old_lib(csrc: str):
         if proc.returncode != 0:
             fail(f"nvcc failed on {sources}:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
-    p, i32, i64 = _kernels._P, _kernels._I32, _kernels._I64
-    # origin, direction, t_max, order, keys, slab, n_clusters, n_packets,
-    # any_hit, t, u, v, tri, stream
-    lib.nrd_packet_hit.argtypes = [p] * 6 + [i32, i64, i32] + [p] * 5
-    lib.nrd_packet_hit_stream.argtypes = _kernels.SIGNATURES["nrd_packet_hit_stream"]
-    lib.nrd_bilinear_sample.argtypes = _kernels.SIGNATURES["nrd_bilinear_sample"]
-    for f in (lib.nrd_packet_hit_stream, lib.nrd_packet_hit, lib.nrd_bilinear_sample):
-        f.restype = ctypes.c_int
+    for name in ("nrd_packet_hit", "nrd_packet_hit_stream", "nrd_bilinear_sample",
+                 "nrd_relax_taccum", "nrd_taa_resolve"):
+        getattr(lib, name).argtypes = _kernels.SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def launch_old(lib, symbol: str, cs, o, d, tm, order, keys, boxes: bool, *flags) -> dict:
+@contextlib.contextmanager
+def parent_kernels(lib):
+    """Inside the block, the port's wrappers launch the parent tree's build
+    (``build_old_lib``) of the same C function."""
+    from nrdsample_tpu_torch.ops import _kernels
+
+    own, _kernels._lib = _kernels.load(), lib
+    try:
+        yield
+    finally:
+        _kernels._lib = own
+
+
+def time_parent(old_lib, kernel, got) -> tuple[float | None, bool]:
+    """(graph-replay ms of the parent's build of ``kernel``, whether its
+    results equal ``got`` (this tree's) within KERNEL_TOL); (None, True)
+    without a parent build."""
+    if old_lib is None:
+        return None, True
+    with parent_kernels(old_lib):
+        old = kernel()
+        torch.cuda.synchronize()
+        old_ms = graph_ms(kernel)
+    old = old if isinstance(old, tuple) else (old,)
+    got = got if isinstance(got, tuple) else (got,)
+    return old_ms, all(max_err(a, b)[1] for a, b in zip(old, got))
+
+
+def launch_old(lib, symbol: str, cs, o, d, tm, order, keys, any_hit: bool, need_uv: bool) -> dict:
     """Launch the parent tree's packet kernel ``symbol`` on the port's packet
-    kernel arguments: the cluster bounds after the slab where ``boxes``, then
-    the flags (any_hit[, need_uv])."""
+    kernel arguments."""
     from nrdsample_tpu_torch.ops import _kernels
 
     r = o.shape[0]
     out = {k: torch.empty(r, dtype=torch.int32 if k == "tri" else torch.float32, device=o.device)
            for k in ("t", "u", "v", "tri")}
-    bounds = [cs.bounds_min.data_ptr(), cs.bounds_max.data_ptr()] if boxes else []
     rc = getattr(lib, symbol)(o.data_ptr(), d.data_ptr(), tm.data_ptr(), order.data_ptr(),
-                              keys.data_ptr(), cs.slab.data_ptr(), *bounds, cs.count, r // 128,
-                              *(int(f) for f in flags), out["t"].data_ptr(), out["u"].data_ptr(),
+                              keys.data_ptr(), cs.slab.data_ptr(), cs.bounds_min.data_ptr(),
+                              cs.bounds_max.data_ptr(), cs.count, r // 128, int(any_hit),
+                              int(need_uv), out["t"].data_ptr(), out["u"].data_ptr(),
                               out["v"].data_ptr(), out["tri"].data_ptr(),
                               torch.cuda.current_stream().cuda_stream)
     _kernels.check(rc, symbol)
@@ -395,13 +456,13 @@ def check_stream_kernel(cs, tris, cam, cfg, dev, card, old_lib=None) -> dict:
         bnd = bound_ms(n * (28 + 16) + order.numel() * 8 + cs.slab.numel() * 4,
                        tests * MT_OPS["packet"])
         if old_lib is not None:
-            old = launch_old(old_lib, "nrd_packet_hit_stream", cs, ko, kd, ktm, order, keys, True,
+            old = launch_old(old_lib, "nrd_packet_hit_stream", cs, ko, kd, ktm, order, keys,
                              any_hit, not any_hit)
             torch.cuda.synchronize()
             if not all(torch.equal(old[k], a[k]) for k in a):
                 fail(f"the streaming kernel's results changed from the parent's build ({case})")
             old_ms = graph_ms(lambda: launch_old(old_lib, "nrd_packet_hit_stream", cs, ko, kd,
-                                                 ktm, order, keys, True, any_hit, not any_hit))
+                                                 ktm, order, keys, any_hit, not any_hit))
             old_src = "built from its source, measured in this call, results identical"
             old_measured = True
             del old
@@ -431,12 +492,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-csrc", metavar="DIR",
-                    help="the csrc directory of the parent tree, whose resident kernel walks "
-                         "one list per packet (`git archive aacc768 nrdsample_tpu_torch/csrc`): "
-                         "its resident kernel is timed beside this tree's on shaderballs512, its "
-                         "streaming kernel and gather on exterior720 and the gather shapes, and "
-                         "the last two must give identical results (without it, the parent's "
-                         "streaming times are quoted from PERF.md)")
+                    help="a parent tree's csrc directory (`git archive <commit> "
+                         "nrdsample_tpu_torch/csrc`): its resident kernel is timed beside this "
+                         "tree's on shaderballs512, its streaming kernel and gather on "
+                         "exterior720 and the gather shapes, its RELAX taccum and TAA resolve on "
+                         "the (1080, 1920) planes; the streaming kernel and gather must give "
+                         "identical results, taccum and TAA equal ones within the kernel limit "
+                         "(without it, the streaming kernel's times are quoted from PERF.md)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA device")
@@ -627,16 +689,16 @@ def main() -> int:
         warp_lb = warp_walk_tests(cs, ko, kd, ktm, res, any_hit)
         bnd = bound_ms(n * (28 + 16) + order.numel() * 8 + cs.slab.numel() * 4,
                        tests * MT_OPS["packet"])
-        old = "the parent's packet walk not measured in this call"
+        old = "the parent's build not measured in this call"
         old_ms = None
         if old_lib is not None:
-            prev = launch_old(old_lib, "nrd_packet_hit", cs, ko, kd, ktm, order, keys, False,
-                              any_hit)
+            prev = launch_old(old_lib, "nrd_packet_hit", cs, ko, kd, ktm, order, keys, any_hit,
+                              True)
             torch.cuda.synchronize()
             n_diff = int((prev["tri"] != res["tri"]).sum())
             old_ms = graph_ms(lambda: launch_old(old_lib, "nrd_packet_hit", cs, ko, kd, ktm, order,
-                                                 keys, False, any_hit))
-            old = (f"the parent's packet walk {old_ms:.3f} ms (built from its source, this call; "
+                                                 keys, any_hit, True))
+            old = (f"the parent's build {old_ms:.3f} ms (built from its source, this call; "
                    f"{ms / old_ms:.3f}x its time; tri differs on {n_diff} rays)")
             del prev
         print(f"[packet_hit] {case} C={cs.count} N={n} sort={sort} any_hit={any_hit}: "
@@ -780,16 +842,19 @@ def main() -> int:
         err = max(e for e, _ in errs)
         accumulated = int((ref[2] > 1.0).sum())
         ms = graph_ms(kernel)
+        old_ms, same = time_parent(old_lib, kernel, got)
         plain_ms = median_ms(plain, reps=5)
         n_planes = 10 + 10 + (1 if conf_c is not None else 0) + 7
         bnd = bound_ms(n_px * n_planes * 4, n_px * TACCUM_OPS)
         print(f"[relax_taccum] (1080, 1920) {case}: accumulated pixels {accumulated} max|err| "
-              f"{err:.3g} | kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}) ({card})")
+              f"{err:.3g} | kernel {ms:.4f} ms, parent's {parent_ms(old_ms, ms)}, plain "
+              f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({card})")
         keeps_history = case not in ("off-screen", "reset")
         if not all(ok for _, ok in errs) or keeps_history != (accumulated > 0):
             fail(f"RELAX taccum kernel disagrees with its plain version ({case})")
-        taccum_res[case] = (err, ms, plain_ms, bnd)
+        if not same:
+            fail(f"the parent's RELAX taccum kernel disagrees with this tree's ({case})")
+        taccum_res[case] = (err, ms, plain_ms, bnd, old_ms)
 
     atrous_res = {}
     avar = rand(kh, kw, hi=0.5)
@@ -818,9 +883,11 @@ def main() -> int:
     cur, prev = rand(kh, kw, 3, hi=1.5), rand(kh, kw, 3, hi=1.5)
     mv_d = (rand(kh, kw, 2) * 2.0 - 1.0) * 3.0
     mv_d[:64, :, 0] += 2000.0   # a band of pixels whose history lies off screen
-    wide = (rand(kh, kw) > 0.7).to(torch.float32)
     reset_mix = (rand(kh, kw) > 0.9).to(torch.float32)
-    for case, wm in (("wide mask", wide), ("no wide mask", None)):
+
+    def check_taa(case, wm):
+        """The TAA kernel against its plain version (and the parent's build)
+        on the (1080, 1920) planes above with the wide mask ``wm``."""
         def kernel():
             return taa_cuda.taa_resolve_cuda(cur, prev, mv_d, wm, reset_mix, 2.0, 0.1)
 
@@ -831,17 +898,56 @@ def main() -> int:
         torch.cuda.synchronize()
         err, ok = max_err(got, ref)
         ms = graph_ms(kernel)
+        old_ms, same = time_parent(old_lib, kernel, got)
         plain_ms = median_ms(plain, reps=5)
         n_wide = int((wm > 0.5).sum()) if wm is not None else 0
+        n_lab = taa_lab_pixels(cur, prev, mv_d, wm, reset_mix, 2.0)
         bnd = bound_ms(n_px * ((10 if wm is not None else 9) + 3) * 4,
-                       n_px * TAA_OPS + n_wide * TAA_WIDE_EXTRA_OPS)
-        print(f"[taa_resolve] (1080, 1920) {case} ({n_wide} wide pixels): max|err| {err:.3g} | "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) "
-              f"({card})")
+                       n_px * TAA_OPS + n_wide * TAA_WIDE_EXTRA_OPS + n_lab * TAA_LAB_OPS)
+        print(f"[taa_resolve] (1080, 1920) {case} ({n_wide} wide pixels, {n_lab} need the "
+              f"CIELAB distance): max|err| {err:.3g} | "
+              f"kernel {ms:.4f} ms, parent's {parent_ms(old_ms, ms)}, plain {plain_ms:.3f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}) ({card})")
         if not ok:
             fail(f"TAA resolve kernel disagrees with its plain version ({case})")
-        taa_res[case] = (err, ms, plain_ms, bnd)
-    del rhist, illum, conf, avar, cur, prev, mv_d, wide, reset_mix, got, ref, vz, nrm, xx, yy
+        if not same:
+            fail(f"the parent's TAA resolve kernel disagrees with this tree's ({case})")
+        taa_res[case] = (err, ms, plain_ms, bnd, old_ms)
+
+    check_taa("random 30% wide mask", (rand(kh, kw) > 0.7).to(torch.float32))
+    check_taa("no wide mask", None)
+
+    # the backward of the three denoiser dispatchers on card planes that
+    # require grad: the kernel's forward, the plain version's gradient
+    for name, counter, dispatch, plain_fn, inputs in (
+            ("relax_taccum", taccum_cuda,
+             lambda *a: relax.taccum(relax.RelaxHistory(*a[:5]), *a[5:9], rset, False, a[9]),
+             lambda *a: relax.taccum_plain(relax.RelaxHistory(*a[:5]), *a[5:9], rset, False,
+                                           a[9]),
+             (rhist.illum, rhist.moments, rhist.view_z, rhist.normal, rhist.frames, illum, vz,
+              nrm, motion(2.5), conf)),
+            ("relax_atrous", atrous_cuda, lambda *a: relax.atrous(*a, 4, rset),
+             lambda *a: relax.atrous_iteration(*a, 4, rset), (illum, avar, vz, nrm)),
+            ("taa_resolve", taa_cuda, lambda *a: taa.resolve(*a, 2.0, 0.1),
+             lambda *a: taa.resolve_tail(*a, 2.0, 0.1), (cur, prev, mv_d, None, reset_mix))):
+        leaves = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
+        before = counter.LAUNCHES
+        got = dispatch(*leaves)
+        launched = counter.LAUNCHES - before
+        want = plain_fn(*leaves)
+        got, want = [x if isinstance(x, tuple) else (x,) for x in (got, want)]
+        cts = [torch.randn(o.shape, generator=g).to(dev) for o in want]
+        given = [t for t in leaves if t is not None]
+        grads = [torch.autograd.grad(o, given, cts, allow_unused=True) for o in (got, want)]
+        errs = [max_err(a, b) for a, b in zip(*grads) if a is not None or b is not None]
+        same_none = all((a is None) == (b is None) for a, b in zip(*grads))
+        print(f"[backward] {name} (1080, 1920), {len(errs)} input gradients: kernel launches "
+              f"{launched}, max|err| against the plain version's autograd "
+              f"{max(e for e, _ in errs):.3g}")
+        if launched != 1 or not same_none or not all(ok for _, ok in errs):
+            fail(f"the {name} dispatcher's backward disagrees with the plain version's autograd")
+        del leaves, got, want, cts, grads
+    del rhist, illum, conf, avar, ref, vz, nrm, xx, yy
 
     # ---- 4. main path, bench config 1: cornell256 ----
     ctx, scene, cam, cfg, settings = bench_configs.setup("cornell256", dev)
@@ -902,7 +1008,11 @@ def main() -> int:
         fail(f"a frame did not launch all six kernels: per-frame launches {per_frame}")
     if not frames_max > 1.0 or int(hist.taa.valid) != 1 or n_keys == 0:
         fail("the RELAX, TAA or SHARC history did not advance")
-    del out, img, hist
+    # the TAA kernel on the frame's own wide mask (misses, hair, glass), which
+    # is coherent where the random one above mixes almost every warp
+    check_taa("kitchen1080 frame's wide mask",
+              out["taa_wide_mask"].reshape(cfg.height, cfg.width).to(torch.float32))
+    del out, img, hist, cur, prev, mv_d, reset_mix
 
     # ---- 5b. the 1.06M-triangle main path: exterior720 (glass, SHARC FULL,
     # emissive clusters); first the streaming packet kernel on its opaque
@@ -1091,7 +1201,7 @@ def main() -> int:
     bil = bil_res[(9, "3")]
     tac = taccum_res["confidence"]
     atr = [atrous_res[st] for st in sorted(atrous_res)]
-    taa_w = taa_res["wide mask"]
+    taa_w = taa_res["random 30% wide mask"]
     kernels = [
         {"name": "dense_hit", "route": "cuda", "source": "nrdsample_tpu_torch/csrc/dense_hit.cu",
          "replaces": "nrdsample_tpu/ops/dense_pallas.py:33", "launches": launches["dense_hit"],
@@ -1149,11 +1259,16 @@ def main() -> int:
           + ", ".join(f"{k} {v[1]:.3f} vs {v[7]:.3f}{'' if v[8] else ' (quoted)'} vs {v[5]:.3f}"
                       for k, v in stream_res.items())
           + f" ({card})")
-    print("[packet_hit summary] shaderballs512 resident kernel vs the parent's packet walk ms "
+    print("[packet_hit summary] shaderballs512 resident kernel vs the parent's build ms "
           "on the same worklists: "
           + ", ".join(f"{k} {v[1]:.3f} vs "
                       + (f"{v[5]:.3f} ({v[5] / v[1]:.2f}x faster)" if v[5] else "not measured")
                       for k, v in packet_res.items())
+          + f" ({card})")
+    print("[denoiser summary] this tree's kernel vs the parent's build ms on the same planes: "
+          + ", ".join(f"{name} {case} {v[1]:.4f} vs {parent_ms(v[4], v[1])}"
+                      for name, res in (("relax_taccum", taccum_res), ("taa_resolve", taa_res))
+                      for case, v in res.items())
           + f" ({card})")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))

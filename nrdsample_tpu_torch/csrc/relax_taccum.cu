@@ -19,27 +19,36 @@
 // the two agree to the ULP on the card.
 //
 // What bounds it on the card: per pixel it reads 21 float planes (10 of history,
-// 11 of the current frame) and writes 7, ~112 bytes, against ~300 float
-// operations: bytes bound it at 1920x1080 (~0.07 ms at 3.35 TB/s).
+// 11 of the current frame) and writes 7, ~112 bytes, against ~250 float32
+// instructions: bytes bound it at 1920x1080 (~0.07 ms at 3.35 TB/s).
 //
-// Design: a 16x16 block computes the accumulation for its tile plus a 1-pixel
-// ring (18x18 positions, the variance needs the accumulated luminance of the 3x3
-// neighbours) and keeps the accumulated luminance in shared memory; the tile's
-// threads then take the 3x3 sums from there. A ring position outside the image
-// computes the clamped edge pixel, which is what the plain version's clamped
-// shift reads. The anti-firefly reads the input luminance of the 3x3
-// neighbours from device memory (cached). The TPU kernel's bounded tent-stencil
-// gather (needed there because its gather is slow) has no counterpart: one direct
-// bilinear gather serves every displacement, off-screen included. Row bands,
-// lane rolls and pad-to-128 layouts are the TPU's and do not carry over.
+// Design: the variance needs the accumulated luminance of the 3x3 neighbours,
+// so a block computes the accumulation for a 32x32 ring of positions and
+// writes the 30x30 outputs inside it (1.14 accumulations per output). Its 32x8
+// threads take 4 ring rows each, one warp per row, so every pass keeps all 256
+// threads busy and a warp's loads of a plane fall on one image row. The input
+// luminance of the ring plus a 1-pixel margin (34x34) is staged once in shared
+// memory; the anti-firefly reads its 8 neighbours from there. The accumulated
+// luminance, the temporal variance and the frame count of every ring position
+// go to shared memory too; after one barrier each thread takes the 3x3 sums of
+// its own positions from there. A ring position outside the image computes the
+// clamped edge pixel, which is what the plain version's clamped shift reads;
+// its anti-firefly neighbours are the edge pixel's clamped neighbours, which the
+// staged margin holds. The TPU kernel's bounded tent-stencil gather (needed
+// there because its gather is slow) has no counterpart: one direct bilinear
+// gather serves every displacement, off-screen included. Row bands, lane rolls
+// and pad-to-128 layouts are the TPU's and do not carry over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kRing = kTile + 2;
+constexpr int kRingW = 32;              // ring positions per row: one warp
+constexpr int kRingH = 32;              // ring rows
+constexpr int kRows = 8;                // thread rows; each takes kRingH / kRows ring rows
+constexpr int kOutW = kRingW - 2, kOutH = kRingH - 2;
+constexpr int kInW = kRingW + 2, kInH = kRingH + 2;   // staged input luminance
 
 __device__ __forceinline__ float lum3(float r, float g, float b) {
   return r * (float)0.2126 + g * (float)0.7152 + b * (float)0.0722;
@@ -64,11 +73,6 @@ struct Planes {
   int anti_ff;
 };
 
-__device__ __forceinline__ float in_lum(const Planes& p, int y, int x) {
-  const float* c = p.il + ((int64_t)y * p.w + x) * 3;
-  return lum3(__ldg(c), __ldg(c + 1), __ldg(c + 2));
-}
-
 // bilinear weights of the four texels in the plain version's order
 struct Tap {
   int64_t i00, i10, i01, i11;
@@ -82,19 +86,20 @@ __device__ __forceinline__ float blend(const float* a, int stride, int k, const 
          c01 * (1.0f - t.fx) * t.fy + c11 * t.fx * t.fy;
 }
 
-// Accumulation at pixel (y, x), inside the image. Fills acc[3], m1, m2, frames.
-__device__ void accumulate(const Planes& p, int y, int x, float acc[3], float& m1, float& m2,
-                           float& frames) {
+// Accumulation at pixel (y, x), inside the image; nb points at its staged
+// input luminance, rows kInW apart. Fills acc[3], m1, m2, frames.
+__device__ void accumulate(const Planes& p, const float* nb, int y, int x, float acc[3],
+                           float& m1, float& m2, float& frames) {
   const int64_t i = (int64_t)y * p.w + x;
   float il[3] = {__ldg(p.il + 3 * i), __ldg(p.il + 3 * i + 1), __ldg(p.il + 3 * i + 2)};
   if (p.anti_ff) {
-    const float l = lum3(il[0], il[1], il[2]);
+    const float l = nb[0];
     float nmin = 0.0f, nmax = 0.0f;
     bool first = true;
     for (int dy = -1; dy <= 1; ++dy) {
       for (int dx = -1; dx <= 1; ++dx) {
         if (dy == 0 && dx == 0) continue;
-        const float ln = in_lum(p, clampi(y + dy, 0, p.h - 1), clampi(x + dx, 0, p.w - 1));
+        const float ln = nb[dy * kInW + dx];
         nmin = first ? ln : fminf(nmin, ln);
         nmax = first ? ln : fmaxf(nmax, ln);
         first = false;
@@ -151,51 +156,68 @@ __device__ void accumulate(const Planes& p, int y, int x, float acc[3], float& m
   }
 }
 
-__global__ void __launch_bounds__(kTile * kTile)
+__global__ void __launch_bounds__(kRingW * kRows)
 relax_taccum_kernel(Planes p, float* __restrict__ out_il, float* __restrict__ out_m,
                     float* __restrict__ out_f, float* __restrict__ out_var) {
-  __shared__ float s_lum[kRing * kRing];
-  __shared__ float s_var_t[kTile * kTile];
-  __shared__ float s_frames[kTile * kTile];
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int oy = blockIdx.y * kTile, ox = blockIdx.x * kTile;
+  __shared__ float s_in[kInH * kInW];          // input luminance, clamped to the image
+  __shared__ float s_lum[kRingH * kRingW];     // accumulated luminance
+  __shared__ float s_var_t[kRingH * kRingW];
+  __shared__ float s_frames[kRingH * kRingW];
+  const int tid = threadIdx.y * kRingW + threadIdx.x;
+  const int oy = blockIdx.y * kOutH, ox = blockIdx.x * kOutW;   // first output pixel
 
-  for (int r = tid; r < kRing * kRing; r += kTile * kTile) {
-    const int ry = r / kRing, rx = r % kRing;
-    const int gy = oy - 1 + ry, gx = ox - 1 + rx;
-    const int y = clampi(gy, 0, p.h - 1), x = clampi(gx, 0, p.w - 1);
+  // stage the input luminance of rows oy-2 .. oy+kOutH+1, columns likewise
+  for (int r = tid; r < kInH * kInW; r += kRingW * kRows) {
+    const int y = clampi(oy - 2 + r / kInW, 0, p.h - 1);
+    const int x = clampi(ox - 2 + r % kInW, 0, p.w - 1);
+    const float* c = p.il + ((int64_t)y * p.w + x) * 3;
+    s_in[r] = lum3(__ldg(c), __ldg(c + 1), __ldg(c + 2));
+  }
+  __syncthreads();
+
+  const int rx = threadIdx.x, gx = ox - 1 + rx;
+  const int x = clampi(gx, 0, p.w - 1);
+  const bool own_x = rx >= 1 && rx <= kOutW && gx < p.w;
+#pragma unroll 1
+  for (int ry = threadIdx.y; ry < kRingH; ry += kRows) {
+    const int gy = oy - 1 + ry;
+    const int y = clampi(gy, 0, p.h - 1);
     float acc[3], m1, m2, frames;
-    accumulate(p, y, x, acc, m1, m2, frames);
+    accumulate(p, s_in + (y - oy + 2) * kInW + (x - ox + 2), y, x, acc, m1, m2, frames);
+    const int r = ry * kRingW + rx;
     s_lum[r] = lum3(acc[0], acc[1], acc[2]);
-    const bool own = ry >= 1 && ry <= kTile && rx >= 1 && rx <= kTile;
-    if (own && gy < p.h && gx < p.w) {
+    s_var_t[r] = fmaxf(m2 - m1 * m1, 0.0f);
+    s_frames[r] = frames;
+    if (own_x && ry >= 1 && ry <= kOutH && gy < p.h) {
       const int64_t i = (int64_t)gy * p.w + gx;
       for (int k = 0; k < 3; ++k) out_il[3 * i + k] = acc[k];
       out_m[2 * i] = m1;
       out_m[2 * i + 1] = m2;
       out_f[i] = frames;
-      const int t = (ry - 1) * kTile + (rx - 1);
-      s_var_t[t] = fmaxf(m2 - m1 * m1, 0.0f);
-      s_frames[t] = frames;
     }
   }
   __syncthreads();
 
-  const int y = oy + threadIdx.y, x = ox + threadIdx.x;
-  if (y >= p.h || x >= p.w) return;
-  float s1 = 0.0f, s2 = 0.0f;
-  for (int dy = -1; dy <= 1; ++dy) {
-    for (int dx = -1; dx <= 1; ++dx) {
-      const float ln = s_lum[(threadIdx.y + 1 + dy) * kRing + threadIdx.x + 1 + dx];
-      s1 = s1 + ln;
-      s2 = s2 + ln * ln;
-    }
-  }
+  if (!own_x) return;
   const float ninth = (float)(1.0 / 9.0);
-  const float mu = s1 * ninth;
-  const float var_s = fmaxf(s2 * ninth - mu * mu, 0.0f);
-  const float var_t = s_var_t[tid];
-  out_var[(int64_t)y * p.w + x] = s_frames[tid] < 4.0f ? fmaxf(var_s, var_t) : var_t;
+#pragma unroll 1
+  for (int ry = threadIdx.y; ry < kRingH; ry += kRows) {
+    const int gy = oy - 1 + ry;
+    if (ry < 1 || ry > kOutH || gy >= p.h) continue;
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int dy = -1; dy <= 1; ++dy) {
+      for (int dx = -1; dx <= 1; ++dx) {
+        const float ln = s_lum[(ry + dy) * kRingW + rx + dx];
+        s1 = s1 + ln;
+        s2 = s2 + ln * ln;
+      }
+    }
+    const float mu = s1 * ninth;
+    const float var_s = fmaxf(s2 * ninth - mu * mu, 0.0f);
+    const int r = ry * kRingW + rx;
+    const float var_t = s_var_t[r];
+    out_var[(int64_t)gy * p.w + gx] = s_frames[r] < 4.0f ? fmaxf(var_s, var_t) : var_t;
+  }
 }
 
 }  // namespace
@@ -211,8 +233,8 @@ extern "C" int nrd_relax_taccum(const void* h_il, const void* h_m, const void* h
            (const float*)h_f,  (const float*)il,  (const float*)vz,  (const float*)nrm,
            (const float*)mv,   (const float*)conf, (const float*)max_frames, h, w, thr,
            anti_ff};
-  const dim3 block(kTile, kTile);
-  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile);
+  const dim3 block(kRingW, kRows);
+  const dim3 grid((w + kOutW - 1) / kOutW, (h + kOutH - 1) / kOutH);
   relax_taccum_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       p, (float*)out_il, (float*)out_m, (float*)out_f, (float*)out_var);
   return (int)cudaGetLastError();

@@ -22,6 +22,7 @@ import torch
 
 from nrdsample_tpu_torch.denoise import atrous_cuda, common, taccum_cuda
 from nrdsample_tpu_torch.mathlib import color, filtering, geometry as geo
+from nrdsample_tpu_torch.ops import _kernels
 
 
 @dataclasses.dataclass
@@ -130,12 +131,20 @@ def taccum_plain(hist: RelaxHistory, illum, view_z, normal, mv, s: RelaxSettings
 
 def taccum(hist: RelaxHistory, illum, view_z, normal, mv, s: RelaxSettings, reset=False,
            confidence=None):
-    """``taccum_plain`` on CPU tensors; the taccum kernel on CUDA tensors."""
+    """``taccum_plain`` on CPU tensors; the taccum kernel on CUDA tensors,
+    differentiable through ``taccum_plain``."""
     if illum.device.type == "cuda":
-        return taccum_cuda.taccum_variance_cuda(
-            hist.illum, hist.moments, hist.view_z, hist.normal, hist.frames, illum, view_z,
-            normal, mv, s.max_accumulated_frames, s.disocclusion_threshold,
-            s.enable_anti_firefly, reset=reset, confidence=confidence)
+        def kernel(hi, hm, hz, hn, hf, il, vz, n, m, conf):
+            return taccum_cuda.taccum_variance_cuda(
+                hi, hm, hz, hn, hf, il, vz, n, m, s.max_accumulated_frames,
+                s.disocclusion_threshold, s.enable_anti_firefly, reset=reset, confidence=conf)
+
+        def plain(hi, hm, hz, hn, hf, il, vz, n, m, conf):
+            return taccum_plain(RelaxHistory(hi, hm, hz, hn, hf), il, vz, n, m, s, reset, conf)
+
+        return _kernels.with_plain_backward(
+            kernel, plain, hist.illum, hist.moments, hist.view_z, hist.normal, hist.frames,
+            illum, view_z, normal, mv, confidence)
     if illum.device.type == "cpu":
         return taccum_plain(hist, illum, view_z, normal, mv, s, reset, confidence)
     raise ValueError(f"no RELAX taccum for device {illum.device}")
@@ -174,10 +183,12 @@ def atrous_iteration(illum, variance, view_z, normal, step: int, s: RelaxSetting
 
 def atrous(illum, variance, view_z, normal, step: int, s: RelaxSettings):
     """``atrous_iteration`` on CPU tensors; the à-trous kernel on CUDA
-    tensors."""
+    tensors, differentiable through ``atrous_iteration``."""
     if illum.device.type == "cuda":
-        return atrous_cuda.atrous_iteration_cuda(illum, variance, view_z, normal, step,
-                                                 s.phi_luminance, s.phi_normal, s.phi_depth)
+        return _kernels.with_plain_backward(
+            lambda *t: atrous_cuda.atrous_iteration_cuda(*t, step, s.phi_luminance,
+                                                         s.phi_normal, s.phi_depth),
+            lambda *t: atrous_iteration(*t, step, s), illum, variance, view_z, normal)
     if illum.device.type == "cpu":
         return atrous_iteration(illum, variance, view_z, normal, step, s)
     raise ValueError(f"no RELAX à-trous for device {illum.device}")

@@ -19,6 +19,7 @@ import torch
 from nrdsample_tpu_torch import config as cfgmod
 from nrdsample_tpu_torch.denoise import common, taa_cuda
 from nrdsample_tpu_torch.mathlib import color, geometry as geo
+from nrdsample_tpu_torch.ops import _kernels
 
 
 @dataclasses.dataclass
@@ -83,7 +84,12 @@ def resolve_tail(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale: float, base
     # disocclusion-driven mix-rate boost by the CIELAB just-noticeable difference
     d = (color.rgb_to_lab(torch.clamp(prev, 0.0, 1.0))
          - color.rgb_to_lab(torch.clamp(clamped, 0.0, 1.0)))
-    jnd = torch.clamp(torch.sqrt(geo.dot3(d, d)) * (1.0 / 23.0), 0.0, 1.0)
+    # |d| = 0 wherever the history lies inside its clamp window; sqrt's
+    # derivative there is infinite and would make the gradient NaN (0 * inf),
+    # so the norm takes the subgradient 0 at 0. Its value is sqrt's.
+    dd = geo.dot3(d, d)
+    de = torch.where(dd == 0.0, 0.0, torch.sqrt(torch.where(dd == 0.0, 1.0, dd)))
+    jnd = torch.clamp(de * (1.0 / 23.0), 0.0, 1.0)
     mix = torch.clamp(base_mix + jnd * 0.5, 0.0, 1.0)
     mix = torch.where(common.in_screen(mv_d, h, w), mix, 1.0)
     mix = torch.maximum(mix, reset_mix)
@@ -91,10 +97,13 @@ def resolve_tail(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale: float, base
 
 
 def resolve(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale: float, base_mix: float):
-    """``resolve_tail`` on CPU tensors; the TAA kernel on CUDA tensors."""
+    """``resolve_tail`` on CPU tensors; the TAA kernel on CUDA tensors,
+    differentiable through ``resolve_tail``."""
     if cur.device.type == "cuda":
-        return taa_cuda.taa_resolve_cuda(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale,
-                                         base_mix)
+        return _kernels.with_plain_backward(
+            lambda *t: taa_cuda.taa_resolve_cuda(*t, sigma_scale, base_mix),
+            lambda *t: resolve_tail(*t, sigma_scale, base_mix), cur, prev, mv_d, wide_mask,
+            reset_mix)
     if cur.device.type == "cpu":
         return resolve_tail(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale, base_mix)
     raise ValueError(f"no TAA resolve for device {cur.device}")

@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -135,10 +137,50 @@ def check(rc: int, name: str) -> None:
 
 
 def check_no_grad(name: str, *tensors) -> None:
-    """Raise if any input needs a gradient: the kernels have no backward
-    yet, and a result that silently drops the gradient would be wrong."""
+    """Raise if any input needs a gradient: a kernel's raw wrapper has no
+    backward, and a result that silently drops the gradient would be wrong.
+    The denoiser kernels' dispatchers differentiate through
+    ``with_plain_backward``."""
     if any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(f"{name} has no backward: an input requires grad")
+
+
+class _PlainBackward(torch.autograd.Function):
+    """``forward(*tensors)`` with the gradient of ``plain(*tensors)``."""
+
+    @staticmethod
+    def forward(ctx, forward, plain, *tensors):
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*tensors)
+        # the inputs still require grad in here: the raw wrappers would raise
+        return forward(*(None if t is None else t.detach() for t in tensors))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        inputs = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            outs = ctx.plain(*inputs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.requires_grad]
+        wrt = [t for t, n in zip(inputs, need) if n]
+        found = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                         allow_unused=True)
+                     if pairs else [None] * len(wrt))
+        return (None, None, *(next(found) if n else None for n in need))
+
+
+def with_plain_backward(forward, plain, *tensors):
+    """``forward(*tensors)`` (a kernel's raw wrapper), differentiable: the
+    backward recomputes ``plain(*tensors)``, the kernel's plain version,
+    under autograd on the saved inputs and returns its gradient for the
+    inputs that require one, as the JAX package's ``custom_vjp`` backwards
+    differentiate their XLA references. ``tensors`` may hold None (an
+    absent optional plane); settings go into the two callables. Where no
+    input requires grad it costs one call of ``forward``."""
+    return _PlainBackward.apply(forward, plain, *tensors)
 
 
 def check_tensor(name: str, x, dtype, shape, device) -> None:

@@ -158,11 +158,19 @@ def _kernel_close(got, want):
         assert bool(((g - w).abs() <= KERNEL_TOL + KERNEL_TOL * w.abs()).all())
 
 
+_TACCUM_CARD_CASES = [(2.4, False, False), (20.0, True, False), (0.8, True, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mv_scale,use_conf,reset", [(2.4, False, False), (20.0, True, False),
-                                                     (0.8, True, True)])
-def test_taccum_kernel_matches_plain_on_card(cuda_device, mv_scale, use_conf, reset):
-    hist, illum, vz, n, mv, conf = _planes(4, mv_scale, h=270, w=480)
+@pytest.mark.parametrize(
+    "mv_scale,use_conf,reset,shape",
+    [(*c, (270, 480)) for c in _TACCUM_CARD_CASES] + [(*c, (37, 53)) for c in _TACCUM_CARD_CASES],
+    ids=[f"{m}-{c}-{r}" for m, c, r in _TACCUM_CARD_CASES]
+    + [f"{m}-{c}-{r}-37x53" for m, c, r in _TACCUM_CARD_CASES])
+def test_taccum_kernel_matches_plain_on_card(cuda_device, mv_scale, use_conf, reset, shape):
+    """At 270x480 and at 37x53, which no tile divides, so blocks cross the
+    right and bottom edges."""
+    hist, illum, vz, n, mv, conf = _planes(4, mv_scale, *shape)
     th, ti, tz, tn, tm, tc = _torch(hist, illum, vz, n, mv, conf, device=cuda_device)
     tc = tc if use_conf else None
     s = relax.RelaxSettings(max_accumulated_frames=torch.tensor(31.0, device=cuda_device))

@@ -131,9 +131,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("use_wide", [True, False])
-def test_taa_kernel_matches_plain_on_card(cuda_device, use_wide):
-    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in _planes(6, h=270, w=480).items()}
+@pytest.mark.parametrize("use_wide,shape",
+                         [(True, (270, 480)), (False, (270, 480)), (True, (37, 53)),
+                          (False, (37, 53))],
+                         ids=["True", "False", "True-37x53", "False-37x53"])
+def test_taa_kernel_matches_plain_on_card(cuda_device, use_wide, shape):
+    """At 270x480 and at 37x53, which no tile divides."""
+    t = {k: torch.from_numpy(v).to(cuda_device) for k, v in _planes(6, *shape).items()}
     wide = t["wide"] if use_wide else None
     before = taa_cuda.LAUNCHES
     got = taa.resolve(t["cur"], t["prev"], t["mv_d"], wide, t["reset"], 2.0, 0.1)
