@@ -3,27 +3,36 @@
     python3 chip_smoke.py [--old-csrc DIR]
 
 Builds the port's CUDA kernels from ``nrdsample_tpu_torch/csrc`` and renders
-four configurations through ``pipeline.frame.render_frame``: first
-shaderballs512 (cluster traversal through the packet kernel, REBLUR + SIGMA
-through the bilinear gather kernel), then, after holding each of the eight
-kernels against its plain PyTorch version on the card at the main paths'
-shapes, cornell256, kitchen1080 (dense traversal, RELAX + SIGMA, SH, TAA,
-SHARC and history confidence, through the dense hit, emissive probe,
-bilinear gather, RELAX taccum, RELAX à-trous and TAA resolve kernels) and
-exterior720 (1.06M triangles through the supercluster stage 1 and the
-streaming packet kernel, glass and the emitters through the resident packet
-kernel, RELAX + SIGMA, TAA, SHARC with its FULL pass). It checks that each
-main path went through its kernels, compares card frames with CPU frames
-and the cornellbox-000 golden, and prints one JSON line of kernels plus a
-final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
+the five configurations of the bench ladder through
+``pipeline.frame.render_frame``: first shaderballs512 (cluster traversal
+through the packet kernel, REBLUR + SIGMA through the bilinear gather
+kernel), then, after holding each of the eight kernels against its plain
+PyTorch version on the card at the main paths' shapes, cornell256,
+kitchen1080 (dense traversal, RELAX + SIGMA, SH, TAA, SHARC and history
+confidence, through the dense hit, emissive probe, bilinear gather, RELAX
+taccum, RELAX à-trous and TAA resolve kernels), exterior720 (1.06M
+triangles through the supercluster stage 1 and the streaming packet kernel,
+glass and the emitters through the resident packet kernel, RELAX + SIGMA,
+TAA, SHARC with its FULL pass) and interior1440 (2560x1440, 15,494 triangles
+through the resident packet kernel, 24 emitters through the probe, RELAX +
+SIGMA, SHARC with confidence, TAA; wall and device-busy ms per frame, peak
+memory; then each kernel call of one more frame against its plain version
+on that frame's own inputs). It checks that each main path went through its
+kernels, compares card frames with CPU frames and the cornellbox-000 golden,
+replays the 344
+records of ``Tests/*.json`` on the card (the CHECK_ME records twice, one
+record of each branch the corpus adds against its CPU frame), holds the
+card's NaN positions to the CPU's under the inf stress test without
+sanitization (REBLUR, and RELAX + TAA), and prints one JSON line of kernels
+plus a final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
 with no result line. It also runs the backward of the three denoiser
 dispatchers on (1080, 1920) planes that require grad (the kernel's forward,
 the plain version's gradient) and the TAA kernel on the kitchen1080 frame's
 own wide mask. Needs a CUDA device; imports nothing of JAX. The option
 builds the parent tree's resident packet, streaming packet, bilinear
-gather, RELAX taccum and TAA resolve kernels from their sources and times
-them beside this tree's on the same inputs; the default run does not take
-it.
+gather, RELAX taccum, RELAX à-trous and TAA resolve kernels from their
+sources and times them beside this tree's on the same inputs; the default
+run does not take it.
 """
 
 from __future__ import annotations
@@ -96,6 +105,18 @@ EXTERIOR_DIVERGENT_RAYS = 786_432   # a sorted bounce-sized set on the exterior
 #: the small exterior of the card-vs-CPU check: 3,196 opaque triangles (25
 #: clusters), 1,488 glass (12 clusters) and 674 emitters
 SMALL_EXTERIOR = dict(cobbles=8, tree_count=6, tree_res=8, lamp_count=4)
+#: the NaN case's image: the sky ring's NaN spreads over most of it, not all
+NAN_RES = 192
+INTERIOR_WARMUP = 2
+INTERIOR_FRAMES = 3
+#: one record of each branch the record corpus adds, compared card against CPU
+BRANCH_RECORDS = (("kitchen", 2, "PSR 1"), ("kitchen", 3, "PSR 2, RELAX"),
+                  ("kitchen", 7, "L1 cache"), ("cornellbox", 7, "OCCLUSION"),
+                  ("cornellbox", 11, "HALF"), ("cornellbox", 48, "firefly + sanitization"),
+                  ("cornellbox", 49, "inf stress + sanitization"), ("shaderballs", 10, "HALF"),
+                  ("shaderballs", 42, "DRS stress + sanitization"),
+                  ("shaderballs", 43, "material id stress"), ("interior-night", 9, "hair/SSS"))
+RECORD_PLANES = ("color", "final", "diff_radiance", "spec_radiance", "shadow", "view_z", "normal")
 
 
 def fail(msg: str):
@@ -161,6 +182,29 @@ def once_ms(fn):
     b.record()
     b.synchronize()
     return a.elapsed_time(b), out
+
+
+def device_busy_ms(fn) -> tuple[float, int]:
+    """(device ms, kernels) of one call of fn() under torch.profiler: the
+    summed durations of its CUDA kernels (one stream, no overlap)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in ("trace_frame", "image_frame")]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+
+
+def nan_mismatch(ref: torch.Tensor, got: torch.Tensor) -> tuple[int, int, int, float, float]:
+    """(pixels with a non-finite value on the CPU, on the card, pixels where
+    the two disagree on it, and frame_mismatch over the pixels finite in
+    both)."""
+    ref, got = ref.cpu().reshape(ref.shape[0], -1), got.cpu().reshape(got.shape[0], -1)
+    bad_r, bad_g = ~torch.isfinite(ref).all(-1), ~torch.isfinite(got).all(-1)
+    both = ~bad_r & ~bad_g
+    frac, rel = frame_mismatch(ref[both], got[both]) if bool(both.any()) else (0.0, 0.0)
+    return int(bad_r.sum()), int(bad_g.sum()), int((bad_r != bad_g).sum()), frac, rel
 
 
 def taa_lab_pixels(cur, prev, mv_d, wide, reset_mix, sigma_scale: float) -> int:
@@ -297,12 +341,12 @@ def warp_walk_tests(cs, o, d, t_max, res: dict, any_hit: bool, chunk: int = 1 <<
 #: the parent tree's kernels that ``--old-csrc`` builds, with the port's C
 #: signatures
 OLD_SOURCES = ("packet_hit.cu", "packet_hit_stream.cu", "bilinear_sample.cu", "relax_taccum.cu",
-               "taa_resolve.cu")
+               "relax_atrous.cu", "taa_resolve.cu")
 
 
 def build_old_lib(csrc: str):
-    """Build the parent tree's packet, gather, RELAX taccum and TAA resolve
-    kernels (``csrc`` is its kernel source directory) with the port's nvcc
+    """Build the parent tree's packet, gather, RELAX taccum, RELAX à-trous
+    and TAA resolve kernels (``csrc`` is its kernel source directory) with the port's nvcc
     flags into a library of their own under the ignored build directory,
     for timing beside the port's kernels; never called on the main path.
     Each takes the port's C signature."""
@@ -325,7 +369,7 @@ def build_old_lib(csrc: str):
             fail(f"nvcc failed on {sources}:\n{proc.stderr}")
     lib = ctypes.CDLL(out)
     for name in ("nrd_packet_hit", "nrd_packet_hit_stream", "nrd_bilinear_sample",
-                 "nrd_relax_taccum", "nrd_taa_resolve"):
+                 "nrd_relax_taccum", "nrd_relax_atrous", "nrd_taa_resolve"):
         getattr(lib, name).argtypes = _kernels.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -487,6 +531,173 @@ def check_stream_kernel(cs, tris, cam, cfg, dev, card, old_lib=None) -> dict:
     return out
 
 
+def ray_subset(n: int, seed: int, dev) -> torch.Tensor:
+    """Sorted indices of PLAIN_SUBSET of n rays (all of them if fewer), drawn
+    from a seed."""
+    if n <= PLAIN_SUBSET:
+        return torch.arange(n, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.sort(torch.randperm(n, generator=g, device=dev)[:PLAIN_SUBSET]).values
+
+
+def keep_rays(i: int, a: dict, out):
+    """What the recorder keeps of a packet or probe call: its arguments with
+    the rays, their t_max and the outputs the caller got cut to a seeded
+    subset of the rays."""
+    o = a["origin"]
+    n = o.shape[0]
+    sub = ray_subset(n, 100 + i, o.device)
+    kept = {k: v for k, v in a.items() if k not in ("origin", "direction", "t_max")}
+    kept.update(n=n, origin=o[sub].clone(), direction=a["direction"][sub].clone())
+    if "t_max" in a:
+        tm = torch.as_tensor(a["t_max"], dtype=torch.float32, device=o.device).expand(n)
+        kept["t_max"] = tm[sub].clone()
+    kept["out"] = ({k: v[sub].clone() for k, v in out.items()} if isinstance(out, dict)
+                   else out[sub].clone())
+    return kept
+
+
+def keep_planes(i: int, a: dict, out):
+    """What the recorder keeps of a gather or denoiser call: every argument
+    and output, tensors copied whole."""
+    def copy(v):
+        return v.detach().clone() if torch.is_tensor(v) else v
+
+    kept = {k: copy(v) for k, v in a.items()}
+    kept["out"] = tuple(copy(v) for v in out) if isinstance(out, tuple) else copy(out)
+    return kept
+
+
+@contextlib.contextmanager
+def recording(specs: dict):
+    """Within the block, each wrapper named by specs, {name: (module,
+    function name, keep)}, records its outermost calls: keep(call index,
+    bound arguments with defaults, result) goes into the yielded {name:
+    list}. A call the wrapper makes to itself (the packet wrapper's re-binned
+    call) is part of the outer call and not recorded again."""
+    import inspect
+
+    kept = {name: [] for name in specs}
+    saved = []
+
+    def recorder(name, fn, keep):
+        sig = inspect.signature(fn)
+        depth = 0
+
+        def rec(*args, **kwargs):
+            nonlocal depth
+            depth += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth -= 1
+            if depth == 0:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                kept[name].append(keep(len(kept[name]), dict(bound.arguments), out))
+            return out
+
+        return rec
+
+    for name, (mod, attr, keep) in specs.items():
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, recorder(name, fn, keep))
+    try:
+        yield kept
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def check_frame_calls(calls: dict, launches: dict, cs, scene, card: str) -> dict:
+    """Hold each recorded call of a frame (``recording``) against its plain
+    version on the same inputs; fails on a disagreement, or where a kernel
+    has no recorded call or fewer than its launches in the frame.
+    Returns {kernel: max |err|}."""
+    from nrdsample_tpu_torch.denoise import relax, taa
+    from nrdsample_tpu_torch.mathlib import filtering
+    from nrdsample_tpu_torch.ops import cluster, emissive_probe
+
+    tris = {k: getattr(scene.tris, k).cpu().numpy() for k in ("p0", "e1", "e2")}
+    frame_err = {}
+    for name, got_calls in calls.items():
+        if not got_calls or len(got_calls) < launches[name]:
+            fail(f"the recorded interior1440 frame made {len(got_calls)} {name} calls and "
+                 f"{launches[name]} launches: a launch went round the recorded wrapper")
+        errs, notes = [], []
+        for c in got_calls:
+            got = c["out"]
+            if name == "packet_hit":
+                if c["cs"] is not cs:
+                    fail("an interior1440 packet call traced another cluster set")
+                o, d, tm = c["origin"], c["direction"], c["t_max"]
+                if c["any_hit"]:
+                    ref = cluster.any_hit_clustered(cs, o, d, tm)
+                    blocked = (got["tri"] >= 0) & (got["t"] < tm)
+                    n_bad, err, ok = int((blocked != ref).sum()), 0.0, bool(torch.equal(blocked,
+                                                                                        ref))
+                    what = f"any-hit blocked {int(ref.sum())}"
+                else:
+                    ref = cluster.closest_hit_clustered(cs, o, d, tm)
+                    if not c["need_uv"]:
+                        ok_uv = not bool(got["u"].any()) and not bool(got["v"].any())
+                        ref = dict(ref, u=torch.zeros_like(ref["u"]) if ok_uv else ref["u"],
+                                   v=torch.zeros_like(ref["v"]) if ok_uv else ref["v"])
+                    n_bad, err, ok = compare_hits(got, ref, o, d, tris)
+                    what = (f"{'sorted' if c['sort'] else 'coherent'} hits "
+                            f"{int((ref['tri'] >= 0).sum())}")
+                notes.append(f"N={c['n']} {what}, tri (or blocked) differences {n_bad}")
+            elif name == "emissive_probe":
+                ref = emissive_probe.light_probe_plain(c["em"], c["origin"], c["direction"])
+                err, ok = max_err(got, ref)
+                notes.append(f"N={c['n']} lit {int((ref > 0).sum())}")
+            elif name == "bilinear_sample":
+                ref = filtering.sample_bilinear(c["img"], c["pos"])
+                err, ok = max_err(got, ref)
+                ok = ok and torch.equal(got, ref)
+                notes.append(f"img {tuple(c['img'].shape)} pos {tuple(c['pos'].shape)}")
+            elif name == "relax_taccum":
+                rs_ = relax.RelaxSettings(max_accumulated_frames=c["max_frames"],
+                                          disocclusion_threshold=c["threshold"],
+                                          enable_anti_firefly=c["anti_firefly"])
+                ref = relax.taccum_plain(
+                    relax.RelaxHistory(c["hist_illum"], c["hist_moments"], c["hist_view_z"],
+                                       c["hist_normal"], c["hist_frames"]),
+                    c["illum"], c["view_z"], c["normal"], c["mv"], rs_, c["reset"],
+                    c["confidence"])
+                pairs = [max_err(a, b) for a, b in zip(got, ref)]
+                err, ok = max(e for e, _ in pairs), all(k for _, k in pairs)
+                notes.append(f"{tuple(c['illum'].shape)} accumulated {int((ref[2] > 1.0).sum())}")
+            elif name == "relax_atrous":
+                rs_ = relax.RelaxSettings(phi_luminance=c["phi_luminance"],
+                                          phi_normal=c["phi_normal"], phi_depth=c["phi_depth"])
+                ref = relax.atrous_iteration(c["illum"], c["variance"], c["view_z"], c["normal"],
+                                             c["step"], rs_)
+                pairs = [max_err(a, b) for a, b in zip(got, ref)]
+                err, ok = max(e for e, _ in pairs), all(k for _, k in pairs)
+                notes.append(f"{tuple(c['illum'].shape)} step {c['step']}")
+            else:
+                ref = taa.resolve_tail(c["cur"], c["prev"], c["mv_d"], c["wide_mask"],
+                                       c["reset_mix"], c["sigma_scale"], c["base_mix"])
+                err, ok = max_err(got, ref)
+                wide = c["wide_mask"]
+                notes.append(f"{tuple(c['cur'].shape)} wide pixels "
+                             f"{0 if wide is None else int((wide > 0.5).sum())}")
+            errs.append(err)
+            if not ok:
+                fail(f"the {name} kernel disagrees with its plain version on the interior1440 "
+                     f"frame's own inputs ({notes[-1]})")
+        frame_err[name] = max(errs)
+        same = {}
+        for note in notes:
+            same[note] = same.get(note, 0) + 1
+        print(f"[{name}] interior1440 frame's own inputs, {len(got_calls)} calls "
+              f"({'; '.join(f'{k} x{n}' for k, n in same.items())}): max|err| "
+              f"{frame_err[name]:.3g} against the plain version ({card})")
+    return frame_err
+
+
 def main() -> int:
     import argparse
 
@@ -495,9 +706,10 @@ def main() -> int:
                     help="a parent tree's csrc directory (`git archive <commit> "
                          "nrdsample_tpu_torch/csrc`): its resident kernel is timed beside this "
                          "tree's on shaderballs512, its streaming kernel and gather on "
-                         "exterior720 and the gather shapes, its RELAX taccum and TAA resolve on "
-                         "the (1080, 1920) planes; the streaming kernel and gather must give "
-                         "identical results, taccum and TAA equal ones within the kernel limit "
+                         "exterior720 and the gather shapes, its RELAX taccum, RELAX à-trous and "
+                         "TAA resolve on the (1080, 1920) planes; the streaming kernel and gather "
+                         "must give identical results, the denoiser kernels equal ones within the "
+                         "kernel limit "
                          "(without it, the streaming kernel's times are quoted from PERF.md)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -871,13 +1083,17 @@ def main() -> int:
         errs = [max_err(a, b) for a, b in zip(got, ref)]
         err = max(e for e, _ in errs)
         ms = graph_ms(kernel)
+        old_ms, same = time_parent(old_lib, kernel, got)
         plain_ms = median_ms(plain, reps=5)
         bnd = bound_ms(n_px * (8 + 4) * 4, n_px * ATROUS_OPS)
         print(f"[relax_atrous] (1080, 1920) step {step}: max|err| {err:.3g} | kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({card})")
+              f"parent's {parent_ms(old_ms, ms)}, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) ({card})")
         if not all(ok for _, ok in errs):
             fail(f"RELAX à-trous kernel disagrees with its plain version (step {step})")
-        atrous_res[step] = (err, ms, plain_ms, bnd)
+        if not same:
+            fail(f"the parent's RELAX à-trous kernel disagrees with this tree's (step {step})")
+        atrous_res[step] = (err, ms, plain_ms, bnd, old_ms)
 
     taa_res = {}
     cur, prev = rand(kh, kw, 3, hi=1.5), rand(kh, kw, 3, hi=1.5)
@@ -1077,6 +1293,133 @@ def main() -> int:
     exterior = (ms, per_frame[-1])
     del out, hist, ctxs, scene, cs
 
+    # ---- 5c. the fifth configuration at full width: interior1440 (15,494
+    # triangles in cluster mode through the resident packet kernel, 24
+    # emitters through the probe, RELAX + SIGMA, SHARC with confidence, TAA);
+    # first its packet and probe kernels against their plain versions on its
+    # own camera rays and probe rays ----
+    t0 = time.perf_counter()
+    ctx, scene, cam, cfg, settings = bench_configs.setup("interior1440", dev)
+    cs = ctx.clusters
+    print(f"[interior1440 setup] {len(ctx.order)} triangles ({scene.tris.count} padded) in "
+          f"{cs.count} clusters (slab "
+          f"{packet.vmem_table_bytes(cs)} B), {int(scene.emissive_count)} emitters, "
+          f"{cfg.width}x{cfg.height}, in {time.perf_counter() - t0:.1f} s")
+    pix = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
+    co, cd, _ = camera.camera_rays(cam, cfg.width, cfg.height, pix, torch.tensor(0, device=dev))
+    co, cd = co.contiguous(), cd.contiguous()
+    ctm = torch.full((cfg.n_pixels,), traversal.T_MAX, device=dev)
+    got = packet.closest_hit_packet_cuda(cs, co, cd, ctm)
+    sub = torch.from_numpy(np.random.RandomState(9).choice(cfg.n_pixels, PLAIN_SUBSET,
+                                                           replace=False)).to(dev)
+    ref = cluster.closest_hit_clustered(cs, co[sub], cd[sub], ctm[sub])
+    tris = {k: getattr(scene.tris, k).cpu().numpy() for k in ("p0", "e1", "e2")}
+    tri_bad, err, ok = compare_hits({k: v[sub] for k, v in got.items()}, ref, co[sub], cd[sub],
+                                    tris)
+    ms = graph_ms(lambda: packet.closest_hit_packet_cuda(cs, co, cd, ctm))
+    print(f"[packet_hit] interior1440 camera C={cs.count} N={cfg.n_pixels}: hits "
+          f"{int((got['tri'] >= 0).sum())}, on {PLAIN_SUBSET} rays against the plain scan tri "
+          f"differences {tri_bad} (float64-proven ties allowed), max|err| t/u/v {err:.3g} | "
+          f"stage 1 and kernel {ms:.3f} ms ({card})")
+    if not ok:
+        fail("the packet kernel disagrees with its plain version on interior1440's camera rays")
+    em = emissive_is.build_emissive_set(scene)
+    po, pd = co[sub].repeat(16, 1), torch.nn.functional.normalize(
+        torch.from_numpy(np.random.RandomState(10).randn(16 * PLAIN_SUBSET, 3).astype(
+            np.float32)).to(dev), dim=-1)
+    got_p = emissive_probe.light_probe_cuda(em, po, pd)
+    ref_p = emissive_probe.light_probe_plain(em, po, pd)
+    torch.cuda.synchronize()
+    p_err, p_ok = max_err(got_p, ref_p)
+    print(f"[emissive_probe] interior1440 E={em['p0'].shape[0]} N={po.shape[0]}: lit "
+          f"{int((ref_p > 0).sum())} max|err| {p_err:.3g}")
+    if not p_ok or not bool((ref_p > 0).any()):
+        fail("the probe kernel disagrees with its plain version on interior1440's emitters")
+    del co, cd, ctm, got, ref, tris, po, pd, got_p, ref_p, pix, sub
+
+    hist = frame.History.create(cfg, dev)
+    for _ in range(INTERIOR_WARMUP):
+        out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+    interior_counters = {"packet_hit": packet, "emissive_probe": emissive_probe,
+                         "bilinear_sample": reproject, "relax_taccum": taccum_cuda,
+                         "relax_atrous": atrous_cuda, "taa_resolve": taa_cuda,
+                         "dense_hit": dense_cuda, "packet_hit_stream": None}
+
+    def icount(k):
+        m = interior_counters[k]
+        return packet.STREAM_LAUNCHES if m is None else m.LAUNCHES
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    per_frame = []
+    reset_counts()
+    stamps = [time.perf_counter()]
+    for _ in range(INTERIOR_FRAMES):
+        before = {k: icount(k) for k in interior_counters}
+        out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        per_frame.append({k: icount(k) - before[k] for k in interior_counters})
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - stamps[0]) * 1e3 / INTERIOR_FRAMES
+    for k in interior_counters:
+        launches[k] = launches.get(k, 0) + icount(k)
+    peak = torch.cuda.max_memory_allocated(dev)
+    lums = {k: float(color.luminance(out[k]).mean()) for k in ("color", "final")}
+    rays_per_px = bench_configs.rays_per_pixel(cfg)
+    frames_max = float(hist.relax_diff.frames.max())
+    n_keys = int((hist.sharc.keys != 0).sum())
+    state = {}
+
+    def one_more():
+        state["out"], state["hist"] = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+
+    busy_ms, n_kernels = device_busy_ms(one_more)
+    busy = (f"device busy {busy_ms:.3f} ms in {n_kernels} kernels (one more frame under "
+            f"torch.profiler), idle share {1.0 - busy_ms / ms:.3f} of the timed frames' wall"
+            if busy_ms > 0 else "device busy not measured (the profiler saw no device time)")
+    print(f"[interior1440] {ms:.3f} ms/frame wall over {INTERIOR_FRAMES} frames after "
+          f"{INTERIOR_WARMUP} warm-up (host ms per frame "
+          f"{', '.join(f'{(b - a) * 1e3:.3f}' for a, b in zip(stamps, stamps[1:]))}), {busy}, "
+          f"{rays_per_px * cfg.n_pixels / (ms * 1e-3):.4g} rays/s ({rays_per_px:.4f} rays/px), "
+          f"peak memory {peak} B, mean luminance composed {lums['color']:.6g} TAA "
+          f"{lums['final']:.6g}, launches/frame {per_frame}, RELAX frames max "
+          f"{frames_max:.3f}, TAA valid {int(hist.taa.valid)}, SHARC keys {n_keys} of "
+          f"{hist.sharc.capacity} ({card})")
+    for k in ("color", "final"):
+        if not bool(torch.isfinite(out[k]).all()) or not lums[k] > 0.0:
+            fail(f"interior1440 {k} image is not finite with a positive mean luminance")
+    needed = ("packet_hit", "emissive_probe", "bilinear_sample", "relax_taccum", "relax_atrous",
+              "taa_resolve")
+    if not all(f[k] > 0 for f in per_frame for k in needed):
+        fail(f"an interior1440 frame did not launch all of {needed}: per-frame launches "
+             f"{per_frame}")
+    if not frames_max > 1.0 or int(hist.taa.valid) != 1 or n_keys == 0 or hist.confidence is None:
+        fail("the interior1440 RELAX, TAA, SHARC or confidence history did not advance")
+    interior = (ms, busy_ms, peak, per_frame[-1])
+
+    # every kernel of the interior1440 frame on that frame's own inputs: one
+    # more frame with each wrapper recording its calls (arguments and the
+    # outputs the frame got), then each call against its plain version on the
+    # same inputs: the gather, RELAX taccum, RELAX à-trous and TAA on their
+    # whole (1440, 2560) planes; the packet kernel's camera, bounce
+    # (divergent) and shadow (any-hit) sets and the probe's rays on a seeded
+    # subset of PLAIN_SUBSET rays of each call
+    with recording({
+            "packet_hit": (packet, "closest_hit_packet_cuda", keep_rays),
+            "emissive_probe": (emissive_probe, "light_probe_cuda", keep_rays),
+            "bilinear_sample": (reproject, "sample_bilinear_cuda", keep_planes),
+            "relax_taccum": (taccum_cuda, "taccum_variance_cuda", keep_planes),
+            "relax_atrous": (atrous_cuda, "atrous_iteration_cuda", keep_planes),
+            "taa_resolve": (taa_cuda, "taa_resolve_cuda", keep_planes)}) as calls:
+        before = {k: icount(k) for k in interior_counters}
+        frame.render_frame(ctx, scene, cam, cfg, settings, state["hist"])
+        recorded_launches = {k: icount(k) - before[k] for k in interior_counters}
+    torch.cuda.synchronize()
+    del state
+    frame_err = check_frame_calls(calls, recorded_launches, cs, scene, card)
+    del calls
+    del out, hist, ctx, scene, cs
+
     # ---- 6. card against CPU, end to end; the cornellbox-000 golden ----
     res = 64
     cfg = RenderConfig(width=res, height=res)
@@ -1170,6 +1513,25 @@ def main() -> int:
     if frac > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL or not glass_same:
         fail("the card's exterior frame disagrees with the CPU frame")
 
+    outs = {}
+    for where in ("cuda", "cpu"):
+        ctx, scene, cam, cfg, settings = bench_configs.setup("interior1440", where, width=80,
+                                                             height=48, sharc_capacity=1 << 16)
+        hist = frame.History.create(cfg, where)
+        for _ in range(3):
+            out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        outs[where] = out
+    worst = []
+    for plane in RECORD_PLANES:
+        frac, rel = frame_mismatch(outs["cpu"][plane], outs["cuda"][plane])
+        worst.append((frac, rel, plane))
+    frac, _, plane = max(worst)
+    rel = max(r for _, r, p in worst if p in ("color", "final"))
+    print(f"[card vs cpu] interior1440's scene and config at 80x48, 3 frames: worst outlier "
+          f"share {frac:.6f} ({plane}), color and TAA mean gap {rel:.3g} (rel)")
+    if frac > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL:
+        fail("the card's interior frame disagrees with the CPU frame")
+
     golden = np.load(os.path.join(REPO, "Tests", "golden", "cornellbox-000.npz"))
     res = int(golden["res"])
     settings, cam, render, _ = records.load_record_full(
@@ -1189,6 +1551,106 @@ def main() -> int:
           f"(limit {0.02 * scale + 1e-4:.4g})")
     if tile_gap > 0.02 * scale + 1e-4 or mean_gap >= 0.02 * scale + 1e-4:
         fail("the cornellbox-000 golden does not match")
+
+    # ---- 6b. the record corpus on the card: all 344 records of Tests/*.json
+    # at 32x32 through records.replay_record (finite, max > 0), the CHECK_ME
+    # records twice (identical), and one record of each new branch against
+    # its CPU frame ----
+    t0 = time.perf_counter()
+    contexts = {}
+    n_records = bad = 0
+    for name in records.REPLAY_SCENES:
+        contexts[name] = records.build_replay_context(name, dev)
+        for i in range(records.count_records(records.record_path(name))):
+            out, _, _ = records.replay_record(*contexts[name], name, i, dev)
+            img = out["color"]
+            n_records += 1
+            if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
+                bad += 1
+                print(f"[corpus] {name} #{i}: not finite with a positive maximum")
+    corpus_s = time.perf_counter() - t0
+    check_bad = []
+    for name, idx in records.CHECK_ME.items():
+        for i in idx:
+            a = records.replay_record(*contexts[name], name, i, dev)[0]
+            b = records.replay_record(*contexts[name], name, i, dev)[0]
+            if not all(torch.equal(a[k], b[k]) for k in RECORD_PLANES):
+                check_bad.append(f"{name} #{i}")
+    n_check = sum(len(v) for v in records.CHECK_ME.values())
+    print(f"[corpus] {n_records} records at 32x32 on the card in {corpus_s:.1f} s: {bad} not "
+          f"finite with a positive maximum; CHECK_ME {n_check} records replayed twice, "
+          f"{len(check_bad)} not identical {check_bad} ({card})")
+    if n_records != 344 or bad or check_bad:
+        fail("the record corpus does not replay on the card")
+    cpu_contexts = {}
+    for name, i, what in BRANCH_RECORDS:
+        if name not in cpu_contexts:
+            cpu_contexts[name] = records.build_replay_context(name, "cpu")
+        got = records.replay_record(*contexts[name], name, i, dev)[0]
+        want = records.replay_record(*cpu_contexts[name], name, i, "cpu")[0]
+        worst = max((*frame_mismatch(want[k], got[k]), k) for k in RECORD_PLANES)
+        _, rel = frame_mismatch(want["color"], got["color"])
+        print(f"[card vs cpu] {name} #{i} ({what}) 32x32: worst outlier share {worst[0]:.6f} "
+              f"({worst[2]}), color mean gap {rel:.3g} (rel)")
+        if worst[0] > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL:
+            fail(f"the card's frame of {name} #{i} ({what}) disagrees with the CPU frame")
+    del contexts, cpu_contexts
+
+    # ---- 6c. NaN through the kernels: the inf stress test without
+    # sanitization writes NaN into the radiance of the pixels that see the
+    # sky (the ring round the box); the denoisers spread it by their
+    # footprints, leaving a finite middle. Through REBLUR (the gather) and
+    # through RELAX + TAA (gather, taccum, à-trous, TAA), over two frames,
+    # the card's non-finite pixels must be the CPU's. The image phase then
+    # runs on both devices from the same input, the CPU's trace of the first
+    # frame, and must agree within the frame tolerance on the finite pixels
+    # as well: of the whole frames, the finite pixels are only reported,
+    # since a few pixels' lobe or reservoir choices flip on a last-ULP
+    # difference of the trace and REBLUR's blur spreads each over its
+    # footprint ----
+    nan_cam = ([0.0, -3.6, 1.0], [0.0, 0.0, 1.0], 55.0)
+    nan_planes = ("color", "final", "diff_radiance", "spec_radiance", "shadow")
+
+    def nan_report(what, want, got):
+        rows = {k: nan_mismatch(want[k], got[k]) for k in nan_planes}
+        print(f"[NaN] cornellbox {NAN_RES}x{NAN_RES} inf stress test, no sanitization, {what}: "
+              f"per plane (non-finite pixels on the CPU, on the card, positions that differ, "
+              f"outlier share and mean gap of the pixels finite in both) "
+              + ", ".join(f"{k} {v[0]}/{v[1]}/{v[2]}/{v[3]:.6f}/{v[4]:.3g}"
+                          for k, v in rows.items()))
+        return rows
+
+    for label, kw in (("REBLUR", dict(denoiser=Denoiser.REBLUR)),
+                      ("RELAX + TAA", dict(denoiser=Denoiser.RELAX, use_taa=True))):
+        cfg = RenderConfig(width=NAN_RES, height=NAN_RES, use_inf_stress_test=True, **kw)
+        outs, inputs = {}, {}
+        for where in ("cuda", "cpu"):
+            ctx, scene = traversal.build_context(procedural.cornell_box(), device=where)
+            cam = look_at(nan_cam[0], nan_cam[1], fov_y_deg=nan_cam[2], device=where)
+            settings = make_settings(where, sun_elevation=-30.0, disable_shadows=1)
+            hist = frame.History.create(cfg, where)
+            inputs[where] = (cam, settings, hist)
+            outs[where] = []
+            for _ in range(2):
+                out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+                outs[where].append(out)
+        for f in range(2):
+            far = int((outs["cpu"][f]["view_z"] > 1e4).sum())
+            rows = nan_report(f"{label}, frame {f} ({far} pixels outside the denoising range)",
+                              outs["cpu"][f], outs["cuda"][f])
+            if far == 0 or rows["color"][0] == cfg.n_pixels or any(v[2] for v in rows.values()):
+                fail(f"the card's non-finite pixels differ from the CPU's ({label}, frame {f})")
+        gb, aux = outs["cpu"][0]["gbuffer"], {"sharc": None, "probes": None}
+        images = {}
+        for where in ("cuda", "cpu"):
+            cam, settings, hist = inputs[where]
+            gbw = {k: tuple(t.to(where) for t in v) if isinstance(v, tuple) else v.to(where)
+                   for k, v in gb.items()}
+            images[where] = frame.image_frame(cfg, settings, cam, hist, gbw, aux)[0]
+        rows = nan_report(f"{label}, the image phase of frame 0 on the CPU's trace",
+                          images["cpu"], images["cuda"])
+        if any(v[2] or v[3] > FRAME_OUTLIER_FRAC for v in rows.values()):
+            fail(f"the card's image phase disagrees with the CPU's on NaN input ({label})")
 
     # ---- 7. shaderballs512 again, after every other phase, in the same process ----
     ctx, scene, cam, cfg, settings = bench_configs.setup("shaderballs512", dev)
@@ -1253,6 +1715,11 @@ def main() -> int:
          "bound_ms": stream_res["primary"][3][0], "bound_by": stream_res["primary"][3][1],
          "library_ms": None},
     ]
+    for k in kernels:
+        if k["name"] in frame_err:
+            k["max_abs_err"] = max(k["max_abs_err"], frame_err[k["name"]])
+    print(f"[interior1440 summary] {interior[0]:.3f} ms/frame wall, {interior[1]:.3f} ms device "
+          f"busy, peak memory {interior[2]} B, launches/frame {interior[3]} ({card})")
     print(f"[exterior720 summary] {exterior[0]:.3f} ms/frame, launches/frame {exterior[1]}; "
           f"streaming kernel vs the parent's build vs resident kernel ms on the same "
           f"worklists: "
@@ -1267,7 +1734,8 @@ def main() -> int:
           + f" ({card})")
     print("[denoiser summary] this tree's kernel vs the parent's build ms on the same planes: "
           + ", ".join(f"{name} {case} {v[1]:.4f} vs {parent_ms(v[4], v[1])}"
-                      for name, res in (("relax_taccum", taccum_res), ("taa_resolve", taa_res))
+                      for name, res in (("relax_taccum", taccum_res), ("relax_atrous", atrous_res),
+                                        ("taa_resolve", taa_res))
                       for case, v in res.items())
           + f" ({card})")
     print(f"gpu: {card}")

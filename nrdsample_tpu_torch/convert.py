@@ -24,6 +24,7 @@ from nrdsample_tpu_torch.denoise.taa import TaaHistory
 from nrdsample_tpu_torch.device import resolve
 from nrdsample_tpu_torch.ops.sharc import SharcState
 from nrdsample_tpu_torch.pipeline.frame import History
+from nrdsample_tpu_torch.render.l1cache import L1History
 from nrdsample_tpu_torch.scene.types import Camera, Materials, Scene, TriangleSoA
 
 
@@ -73,7 +74,8 @@ def settings_from_numpy(d: dict, device=None) -> Settings:
 
 _SLOTS = {"reference": ReferenceHistory, "relax_diff": RelaxHistory, "relax_spec": RelaxHistory,
           "reblur_diff": ReblurHistory, "reblur_spec": ReblurHistory, "sigma": SigmaHistory,
-          "taa": TaaHistory, "sharc": SharcState, "confidence": ConfidenceHistory}
+          "taa": TaaHistory, "sharc": SharcState, "confidence": ConfidenceHistory,
+          "l1": L1History}
 
 
 def history_from_numpy(d: dict, device=None) -> History:
@@ -82,7 +84,8 @@ def history_from_numpy(d: dict, device=None) -> History:
     "relax_spec" (illum, moments, view_z, normal, frames), "reblur_diff" and
     "reblur_spec" (illum, fast_illum, hitdist, view_z, normal, frames),
     "sigma" (shadow, frames, view_z), "taa" (color, valid), "sharc" (keys
-    uint32, accum, resolved, last_seen) and "confidence" (probe_lum, view_z).
+    uint32, accum, resolved, last_seen), "confidence" (probe_lum, view_z) and
+    "l1" (packed, valid).
     SHARC's uint32 keys become the port's int64 keys of the same value."""
     device = resolve(device)
     slots = {}

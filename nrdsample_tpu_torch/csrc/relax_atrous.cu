@@ -27,6 +27,8 @@
 #include <stdint.h>
 #include <stdlib.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 __device__ __forceinline__ float lum3(float r, float g, float b) {
@@ -45,9 +47,9 @@ relax_atrous_kernel(const float* __restrict__ il, const float* __restrict__ var,
   if (x >= w || y >= h) return;
   const int64_t i = (int64_t)y * w + x;
   const float lum_c = lum3(il[3 * i], il[3 * i + 1], il[3 * i + 2]);
-  const float sigma_l = sqrtf(fmaxf(var[i], 0.0f) + (float)1e-12) * phi_l + (float)1e-4;
+  const float sigma_l = sqrtf(nan_max(var[i], 0.0f) + (float)1e-12) * phi_l + (float)1e-4;
   const float z = vz[i];
-  const float abs_z = fmaxf(fabsf(z), 1e-3f);
+  const float abs_z = nan_max(fabsf(z), 1e-3f);
   const float n0 = nrm[3 * i], n1 = nrm[3 * i + 1], n2 = nrm[3 * i + 2];
   const float kern[3] = {0.25f, 0.5f, 0.25f};
 
@@ -65,7 +67,7 @@ relax_atrous_kernel(const float* __restrict__ il, const float* __restrict__ var,
       const float wz = expf(-fabsf(__ldg(vz + j) - z) / (phi_d * abs_z * reach));
       const float ndot = __ldg(nrm + 3 * j) * n0 + __ldg(nrm + 3 * j + 1) * n1 +
                          __ldg(nrm + 3 * j + 2) * n2;
-      const float wn = powf(fminf(fmaxf(ndot, 0.0f), 1.0f), phi_n);
+      const float wn = powf(nan_min(nan_max(ndot, 0.0f), 1.0f), phi_n);
       const float wl = expf(-fabsf(lum3(t0, t1, t2) - lum_c) / sigma_l);
       const float wgt = kern[iy] * kern[ix] * wz * wn * wl;
       acc[0] = acc[0] + t0 * wgt;
@@ -75,7 +77,7 @@ relax_atrous_kernel(const float* __restrict__ il, const float* __restrict__ var,
       acc_w = acc_w + wgt;
     }
   }
-  const float inv = 1.0f / fmaxf(acc_w, 1e-6f);
+  const float inv = 1.0f / nan_max(acc_w, 1e-6f);
   for (int k = 0; k < 3; ++k) out_il[3 * i + k] = acc[k] * inv;
   out_var[i] = acc_var * inv * inv;
 }

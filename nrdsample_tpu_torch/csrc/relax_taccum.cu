@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 constexpr int kRingW = 32;              // ring positions per row: one warp
@@ -100,12 +102,12 @@ __device__ void accumulate(const Planes& p, const float* nb, int y, int x, float
       for (int dx = -1; dx <= 1; ++dx) {
         if (dy == 0 && dx == 0) continue;
         const float ln = nb[dy * kInW + dx];
-        nmin = first ? ln : fminf(nmin, ln);
-        nmax = first ? ln : fmaxf(nmax, ln);
+        nmin = first ? ln : nan_min(nmin, ln);
+        nmax = first ? ln : nan_max(nmax, ln);
         first = false;
       }
     }
-    const float scale = fminf(fmaxf(l, nmin), nmax) / fmaxf(l, 1e-9f);
+    const float scale = nan_min(nan_max(l, nmin), nmax) / nan_max(l, 1e-9f);
     for (int k = 0; k < 3; ++k) il[k] = il[k] * scale;
   }
 
@@ -134,14 +136,14 @@ __device__ void accumulate(const Planes& p, const float* nb, int y, int x, float
   // disocclusion (denoise/common.py:disocclusion_weight), on-screen, confidence
   const float z = __ldg(p.vz + i);
   const float* n = p.nrm + 3 * i;
-  const float rel = fabsf(prev_z - (z + mvz)) / fmaxf(fabsf(z), 1e-3f);
+  const float rel = fabsf(prev_z - (z + mvz)) / nan_max(fabsf(z), 1e-3f);
   const float ndot = __ldg(n) * prev_n[0] + __ldg(n + 1) * prev_n[1] + __ldg(n + 2) * prev_n[2];
   float valid = (rel < p.thr ? 1.0f : 0.0f) * (ndot > 0.5f ? 1.0f : 0.0f);
   const bool on = posx >= 0.0f && posx <= (float)p.w && posy >= 0.0f && posy <= (float)p.h;
   valid = valid * (on ? 1.0f : 0.0f);
   if (p.conf != nullptr) valid = valid * __ldg(p.conf + i);
 
-  frames = fminf(prev_f * valid + 1.0f, __ldg(p.max_frames));
+  frames = nan_min(prev_f * valid + 1.0f, __ldg(p.max_frames));
   const float alpha = 1.0f / frames;
   const float l = lum3(il[0], il[1], il[2]);
   const float l2 = l * l;
@@ -186,7 +188,7 @@ relax_taccum_kernel(Planes p, float* __restrict__ out_il, float* __restrict__ ou
     accumulate(p, s_in + (y - oy + 2) * kInW + (x - ox + 2), y, x, acc, m1, m2, frames);
     const int r = ry * kRingW + rx;
     s_lum[r] = lum3(acc[0], acc[1], acc[2]);
-    s_var_t[r] = fmaxf(m2 - m1 * m1, 0.0f);
+    s_var_t[r] = nan_max(m2 - m1 * m1, 0.0f);
     s_frames[r] = frames;
     if (own_x && ry >= 1 && ry <= kOutH && gy < p.h) {
       const int64_t i = (int64_t)gy * p.w + gx;
@@ -213,10 +215,10 @@ relax_taccum_kernel(Planes p, float* __restrict__ out_il, float* __restrict__ ou
       }
     }
     const float mu = s1 * ninth;
-    const float var_s = fmaxf(s2 * ninth - mu * mu, 0.0f);
+    const float var_s = nan_max(s2 * ninth - mu * mu, 0.0f);
     const int r = ry * kRingW + rx;
     const float var_t = s_var_t[r];
-    out_var[(int64_t)gy * p.w + gx] = s_frames[r] < 4.0f ? fmaxf(var_s, var_t) : var_t;
+    out_var[(int64_t)gy * p.w + gx] = s_frames[r] < 4.0f ? nan_max(var_s, var_t) : var_t;
   }
 }
 

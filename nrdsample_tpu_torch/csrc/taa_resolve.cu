@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nan_minmax.cuh"
+
 namespace {
 
 constexpr int kTileW = 32;             // one warp per row
@@ -56,7 +58,7 @@ constexpr int kInW = kTileW + 2 * kHalo, kInH = kTileH + 2 * kHalo;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
-__device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
+__device__ __forceinline__ float clamp01(float v) { return nan_min(nan_max(v, 0.0f), 1.0f); }
 
 // color.rgb_to_lab of an rgb already clamped to [0, 1]
 __device__ void lab(const float c[3], float out[3]) {
@@ -65,11 +67,11 @@ __device__ void lab(const float c[3], float out[3]) {
                          {(float)0.0193339, (float)0.1191920, (float)0.9503041}};
   const float inv_white[3] = {(float)(1.0 / 0.950489), (float)(1.0 / 1.0),
                               (float)(1.0 / 1.088840)};
-  const float r = fmaxf(c[0], 0.0f), g = fmaxf(c[1], 0.0f), b = fmaxf(c[2], 0.0f);
+  const float r = nan_max(c[0], 0.0f), g = nan_max(c[1], 0.0f), b = nan_max(c[2], 0.0f);
   float f[3];
   for (int k = 0; k < 3; ++k) {
     const float xyz = (m[k][0] * r + m[k][1] * g + m[k][2] * b) * inv_white[k];
-    f[k] = xyz > (float)0.008856 ? powf(fmaxf(xyz, (float)1e-9), (float)(1.0 / 3.0))
+    f[k] = xyz > (float)0.008856 ? powf(nan_max(xyz, (float)1e-9), (float)(1.0 / 3.0))
                                  : (float)7.787 * xyz + (float)(16.0 / 116.0);
   }
   out[0] = 116.0f * f[1] - 16.0f;
@@ -142,9 +144,9 @@ taa_resolve_kernel(const float* __restrict__ cur, const float* __restrict__ prev
     bool differs = false;
     for (int k = 0; k < 3; ++k) {
       const float mu = s1[k] * inv_n;
-      const float sigma = sqrtf(fmaxf(s2[k] * inv_n - mu * mu, 0.0f) + (float)1e-12);
+      const float sigma = sqrtf(nan_max(s2[k] * inv_n - mu * mu, 0.0f) + (float)1e-12);
       const float p = __ldg(prev + 3 * i + k);
-      const float cl = fminf(fmaxf(p, mu - sigma * sigma_scale), mu + sigma * sigma_scale);
+      const float cl = nan_min(nan_max(p, mu - sigma * sigma_scale), mu + sigma * sigma_scale);
       s_cl[k][slot] = cl;
       differs = differs || clamp01(p) != clamp01(cl);
     }
@@ -185,7 +187,7 @@ taa_resolve_kernel(const float* __restrict__ cur, const float* __restrict__ prev
   for (int j = 0; j < kPerThread; ++j) {
     const int ty = threadIdx.y + j * kRows, y = oy + ty, slot = ty * kTileW + tx;
     if (y >= h) return;
-    const float mix = fmaxf(on[j] ? clamp01(base_mix + s_jnd[slot] * 0.5f) : 1.0f, reset[j]);
+    const float mix = nan_max(on[j] ? clamp01(base_mix + s_jnd[slot] * 0.5f) : 1.0f, reset[j]);
     const int64_t i = (int64_t)y * w + x;
     for (int k = 0; k < 3; ++k) {
       const float c = s_cur[k][ty + kHalo][tx + kHalo], cl = s_cl[k][slot];

@@ -159,22 +159,25 @@ def _scan_clusters(o, d, entry, cs: ClusterSet, t_max, any_hit: bool) -> dict:
         return done | s["blocked"] if any_hit else done
 
     def step(i):
-        cid = order_t[min(i, c - 1)]
-        active = ~ray_done(i)
-        p0, e1, e2 = cs.p0_b[cid], cs.e1_b[cid], cs.e2_b[cid]       # (R, K, 3)
-        t, u, v, hit = intersect.mt_intersect(ox, oy, oz, dx, dy, dz, *p0.unbind(-1),
-                                              *e1.unbind(-1), *e2.unbind(-1))
-        hit = hit & active[:, None] & (t < s["t"][:, None])
+        # only the rays still scanning are tested (the others keep their hit)
+        act = torch.nonzero(~ray_done(i))[:, 0]
+        cid = order_t[min(i, c - 1)][act]
+        p0, e1, e2 = cs.p0_b[cid], cs.e1_b[cid], cs.e2_b[cid]       # (A, K, 3)
+        t, u, v, hit = intersect.mt_intersect(
+            ox[act], oy[act], oz[act], dx[act], dy[act], dz[act],
+            *p0.unbind(-1), *e1.unbind(-1), *e2.unbind(-1))
+        best = s["t"][act]
+        hit = hit & (t < best[:, None])
         t = torch.where(hit, t, T_MAX)
         arg = torch.argmin(t, dim=-1, keepdim=True)
         tmin = torch.gather(t, 1, arg)[:, 0]
-        closer = tmin < s["t"]
-        s["t"] = torch.where(closer, tmin, s["t"])
-        s["u"] = torch.where(closer, torch.gather(u, 1, arg)[:, 0], s["u"])
-        s["v"] = torch.where(closer, torch.gather(v, 1, arg)[:, 0], s["v"])
+        closer = tmin < best
+        s["t"][act] = torch.where(closer, tmin, best)
+        s["u"][act] = torch.where(closer, torch.gather(u, 1, arg)[:, 0], s["u"][act])
+        s["v"][act] = torch.where(closer, torch.gather(v, 1, arg)[:, 0], s["v"][act])
         tri_hit = (cid * CLUSTER_SIZE + arg[:, 0]).to(torch.int32)
-        s["tri"] = torch.where(closer, tri_hit, s["tri"])
-        s["blocked"] = s["blocked"] | hit.any(dim=-1)
+        s["tri"][act] = torch.where(closer, tri_hit, s["tri"][act])
+        s["blocked"][act] = s["blocked"][act] | hit.any(dim=-1)
 
     i = 0
     while i < min(K_PREFIX, c) or (i < c and not bool(ray_done(i).all())):

@@ -20,20 +20,15 @@ LAUNCHES = 0
 
 def light_probe_plain(em: dict, origin: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
     """Intensity of the nearest emissive triangle along each ray, 0 on a
-    miss: a loop over the emissive table on (N,) tensors with the dense
-    hit's test and tie-break (best t starts at T_MAX)."""
-    o = origin.unbind(-1)
-    d = direction.unbind(-1)
-    best_t = torch.full((origin.shape[0],), intersect.T_MAX, dtype=origin.dtype,
-                        device=origin.device)
-    li = torch.zeros_like(best_t)
-    rows = torch.cat([em["p0"], em["e1"], em["e2"], em["intensity"][:, None]], dim=1)
-    for row in rows.detach().cpu().tolist():
-        t, _, _, hit = intersect.mt_intersect(*o, *d, *row[:9])
-        hit = hit & (t < best_t)
-        best_t = torch.where(hit, t, best_t)
-        li = torch.where(hit, row[9], li)
-    return li
+    miss: the dense hit's scan of the emissive table (``nearest_hits``: its
+    test and tie-break, best t starting at T_MAX). Rows with a zero edge
+    (the set's padding) fail the test's determinant check on every ray, so
+    the scan leaves them out."""
+    keep = torch.nonzero((em["e1"] != 0).any(-1) & (em["e2"] != 0).any(-1))[:, 0]
+    table = torch.cat([em["p0"], em["e1"], em["e2"]], dim=1)[keep]
+    _, idx, _, _ = intersect.nearest_hits(origin, direction, table, intersect.T_MAX)
+    li = em["intensity"][keep].to(origin.device)[torch.clamp_min(idx, 0)]
+    return torch.where(idx >= 0, li, 0.0)
 
 
 def light_probe_cuda(em: dict, origin: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:

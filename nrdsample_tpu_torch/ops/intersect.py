@@ -2,9 +2,9 @@
 kernel (``csrc/dense_hit.cu``), counterpart of
 ``nrdsample_tpu/ops/intersect.py:intersect_dense``.
 
-A loop over the triangle table on (R,) tensors, with the epsilons and the
-first-hit tie-break of the JAX package's Möller-Trumbore (``_mt_intersect``):
-a triangle replaces the best hit only when its t is strictly smaller."""
+A scan of the triangle table, with the epsilons and the first-hit tie-break
+of the JAX package's Möller-Trumbore (``_mt_intersect``): a triangle
+replaces the best hit only when its t is strictly smaller."""
 
 from __future__ import annotations
 
@@ -36,27 +36,48 @@ def mt_intersect(ox, oy, oz, dx, dy, dz, p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y,
     return t, u, v, hit
 
 
+#: the most (ray, triangle) pairs one step of the chunked scan tests at once
+CHUNK_PAIRS = 1 << 16
+
+
+def nearest_hits(origin: torch.Tensor, direction: torch.Tensor, table: torch.Tensor, t_max):
+    """The dense scan of R rays over the (T, 9) table of triangles [p0, e1,
+    e2]: (best t, best triangle index (int64, -1 on a miss), u, v) of (R,)
+    tensors. A triangle replaces the best hit only when its t is strictly
+    smaller, so ties go to the lower index. A step tests a chunk of
+    triangles on (R, chunk) tensors, as many as keep R x chunk within
+    ``CHUNK_PAIRS`` (at least one), and keeps its first smallest t. Every
+    chunk size gives the same bits: each op is the same float32 op on the
+    same operands."""
+    r = origin.shape[0]
+    best_t = torch.empty(r, dtype=origin.dtype, device=origin.device)
+    best_t.copy_(torch.as_tensor(t_max, dtype=origin.dtype).expand(r))
+    best_u = torch.zeros_like(best_t)
+    best_v = torch.zeros_like(best_t)
+    best_i = torch.full((r,), -1, dtype=torch.int64, device=origin.device)
+    chunk = max(1, CHUNK_PAIRS // max(r, 1))
+    o = [a[:, None] for a in origin.unbind(-1)]
+    d = [a[:, None] for a in direction.unbind(-1)]
+    table = table.detach().to(origin.device)
+    for a in range(0, table.shape[0], chunk):
+        rows = table[a:a + chunk]
+        t, u, v, hit = mt_intersect(*o, *d, *(rows[None, :, k] for k in range(9)))
+        t = torch.where(hit & (t < best_t[:, None]), t, torch.inf)
+        arg = torch.argmin(t, dim=1, keepdim=True)
+        tmin = torch.gather(t, 1, arg)[:, 0]
+        closer = tmin < best_t
+        best_t = torch.where(closer, tmin, best_t)
+        best_u = torch.where(closer, torch.gather(u, 1, arg)[:, 0], best_u)
+        best_v = torch.where(closer, torch.gather(v, 1, arg)[:, 0], best_v)
+        best_i = torch.where(closer, arg[:, 0] + a, best_i)
+    return best_t, best_i, best_u, best_v
+
+
 def intersect_dense(origin: torch.Tensor, direction: torch.Tensor,
                     p0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor,
                     t_max=T_MAX) -> dict:
     """Closest hit of R rays against T triangles: dict(t, u, v, tri) of (R,)
     tensors; on a miss t = t_max and tri = -1. ``t_max`` is a number or an
     (R,) tensor."""
-    r = origin.shape[0]
-    o = origin.unbind(-1)
-    d = direction.unbind(-1)
-    best_t = torch.empty(r, dtype=origin.dtype, device=origin.device)
-    best_t.copy_(torch.as_tensor(t_max, dtype=origin.dtype).expand(r))
-    best_u = torch.zeros_like(best_t)
-    best_v = torch.zeros_like(best_t)
-    best_i = torch.full((r,), -1, dtype=torch.int32, device=origin.device)
-    # the table's entries enter as Python floats (exact copies of the float32
-    # values), so each op is one (R,)-tensor op with a scalar
-    for j, row in enumerate(torch.cat([p0, e1, e2], dim=1).detach().cpu().tolist()):
-        t, u, v, hit = mt_intersect(*o, *d, *row)
-        hit = hit & (t < best_t)
-        best_t = torch.where(hit, t, best_t)
-        best_u = torch.where(hit, u, best_u)
-        best_v = torch.where(hit, v, best_v)
-        best_i = torch.where(hit, j, best_i)
-    return {"t": best_t, "u": best_u, "v": best_v, "tri": best_i}
+    t, i, u, v = nearest_hits(origin, direction, torch.cat([p0, e1, e2], dim=1), t_max)
+    return {"t": t, "u": u, "v": v, "tri": i.to(torch.int32)}

@@ -1,5 +1,5 @@
-"""The configurations of the JAX package's bench ladder (``bench.py:61-96``)
-that the port renders. ``setup`` builds one on a device."""
+"""The five configurations of the JAX package's bench ladder
+(``bench.py:61-103``). ``setup`` builds one on a device."""
 
 from __future__ import annotations
 
@@ -40,6 +40,15 @@ CONFIGS = {
         cfg=dict(width=1280, height=720, rpp=1, bounce_num=1, denoiser=Denoiser.RELAX,
                  use_sharc=True, use_taa=True),
         settings=dict(sun_elevation=30.0), glass=True),
+    # bench.py:97-103: the interior at night (15,494 triangles in cluster
+    # mode, 24 emitters for the emissive probe), RELAX + SIGMA, SHARC with
+    # the history-confidence plane, TAA; its glass spheres are traced in the
+    # one opaque context, as the JAX bench builds it (no glass=True)
+    "interior1440": dict(
+        scene=procedural.interior_night, cam=([0.0, -3.5, 1.8], [0.0, 1.5, 1.2], 60.0),
+        cfg=dict(width=2560, height=1440, rpp=1, bounce_num=1, denoiser=Denoiser.RELAX,
+                 use_sharc=True, use_confidence=True, use_taa=True),
+        settings=dict(sun_elevation=-20.0)),
 }
 
 

@@ -5,15 +5,18 @@
 
 Three denoiser paths are ported: REFERENCE accumulation, and REBLUR or RELAX
 with SIGMA for the sun shadow; with them the SHARC radiance cache and its
-history-confidence plane, the SH resolve and TAA. The trace runs the SHARC
-update pass before the opaque trace; with glass (a ``SceneContexts`` with a
-transparent context) it then marches the sun-shadow rays through the glass
-layers and traces the glass delta chains. The image work runs as
-``image_frame_begin`` (history confidence, hit-distance reconstruction,
-SIGMA, RELAX, REBLUR temporal accumulation) then ``image_frame_finish``
-(REBLUR blur and stabilization, SH resolve and composition, the glass
-overlay, REFERENCE, TAA, history assembly), with every history gather
-inline.
+history-confidence plane, the L1 cache, the SH resolve, the OCCLUSION and
+DIRECTIONAL_OCCLUSION modes, HALF (checkerboard) tracing and TAA. The trace
+runs the SHARC update pass before the opaque trace (with the PSR walk and
+the L1 cache), then the stress tests and sanitization; with glass (a
+``SceneContexts`` with a transparent context) it then marches the
+sun-shadow rays through the glass layers and traces the glass delta chains.
+The image work runs as ``image_frame_begin`` (history confidence,
+hit-distance reconstruction or the checkerboard resolve, SIGMA, the
+occlusion planes, RELAX, REBLUR temporal accumulation) then
+``image_frame_finish`` (REBLUR blur and stabilization, SH resolve and
+composition, the glass overlay, REFERENCE, TAA, the L1 history, history
+assembly), with every history gather inline.
 """
 
 from __future__ import annotations
@@ -25,12 +28,12 @@ import torch
 
 from nrdsample_tpu_torch import config as cfgmod
 from nrdsample_tpu_torch.config import Denoiser, NrdMode, RenderConfig, Settings, TracingMode
-from nrdsample_tpu_torch.denoise import (checkerboard, common, composition, confidence, reblur,
-                                         reference, relax, sh, sigma, taa)
+from nrdsample_tpu_torch.denoise import (checkerboard, common, composition, confidence,
+                                         occlusion, reblur, reference, relax, sh, sigma, taa)
 from nrdsample_tpu_torch.device import resolve
 from nrdsample_tpu_torch.mathlib import color, geometry as geo
 from nrdsample_tpu_torch.ops import sharc, traversal
-from nrdsample_tpu_torch.render import sharc_update, trace_opaque, trace_transparent
+from nrdsample_tpu_torch.render import l1cache, sharc_update, stress, trace_opaque, trace_transparent
 from nrdsample_tpu_torch.scene import camera as cam_mod
 from nrdsample_tpu_torch.scene.types import Camera, Scene
 
@@ -38,8 +41,8 @@ from nrdsample_tpu_torch.scene.types import Camera, Scene
 @dataclasses.dataclass
 class History:
     """Cross-frame state: the frame index and the slots of the configured
-    denoiser, radiance cache and TAA (unused slots are None; the L1 cache and
-    NEURAL slots arrive with their slices)."""
+    denoiser, radiance caches and TAA (unused slots are None; the NEURAL
+    slot arrives with its slice)."""
 
     frame_index: torch.Tensor   # () int32
     reference: Any = None       # reference.ReferenceHistory
@@ -50,6 +53,7 @@ class History:
     sigma: Any = None           # sigma.SigmaHistory
     taa: Any = None             # taa.TaaHistory
     sharc: Any = None           # sharc.SharcState (the L2 radiance cache)
+    l1: Any = None              # l1cache.L1History (the previous frame's irradiance)
     confidence: Any = None      # confidence.ConfidenceHistory (probe luminance)
 
     @staticmethod
@@ -66,6 +70,8 @@ class History:
                 ds = cfg.sharc_downscale
                 kw["confidence"] = confidence.ConfidenceHistory.create(
                     max(h // ds, 1), max(w // ds, 1), dt, device)
+        if cfg.use_l1_cache:
+            kw["l1"] = l1cache.L1History.create(h, w, dt, device)
         if cfg.denoiser == Denoiser.REFERENCE:
             kw["reference"] = reference.ReferenceHistory.create(cfg.n_pixels, dt, device)
         elif cfg.denoiser == Denoiser.RELAX:
@@ -117,8 +123,9 @@ def _shadow_translucency_march(tctx: traversal.TraceContext, scene: Scene, cfg: 
 
 def trace_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
                 history: History, pixel_idx=None):
-    """Phase 1 — the SHARC update pass, the opaque trace, and with glass the
-    shadow translucency march and the glass delta chains. ``ctx`` is a
+    """Phase 1 — the SHARC update pass, the opaque trace, the stress tests
+    and sanitization, and with glass the shadow translucency march and the
+    glass delta chains. ``ctx`` is a
     TraceContext or a SceneContexts. Returns (gb, aux): per-pixel planes
     (with glass: glass_color, glass_mask and the tinted shadow) and the
     pixel-independent outputs {"sharc": the updated cache, "probes": the
@@ -130,8 +137,19 @@ def trace_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Set
         sharc_state, probes = sharc_update.sharc_update_pass(ctxs, scene, cam, cfg, settings, frame,
                                                              sharc_state)
     gb = trace_opaque.trace_opaque(ctxs.opaque, scene, cam, cfg, settings, frame, pixel_idx,
-                                   sharc_state if cfg.use_sharc else None)
+                                   sharc_state if cfg.use_sharc else None,
+                                   history.l1 if cfg.use_l1_cache else None)
     shadow_ray = gb.pop("shadow_ray")
+
+    stress_on = (cfg.use_drs_stress_test or cfg.use_inf_stress_test or cfg.use_firefly_test
+                 or cfg.use_material_id_test)
+    if stress_on or cfg.use_sanitization:
+        pidx = pixel_idx if pixel_idx is not None else torch.arange(
+            cfg.n_pixels, dtype=torch.int32, device=gb["view_z"].device)
+        if stress_on:
+            gb = stress.apply_stress_tests(gb, cfg, settings, pidx, frame)
+        if cfg.use_sanitization:
+            gb = stress.sanitize_gbuffer(gb, cfg, settings, pidx)
 
     if ctxs.transparent is not None and cfg.use_translucency:
         # the sun-shadow ray through the glass layers: the luminance of the
@@ -199,10 +217,11 @@ def _confidence_plane(cfg: RenderConfig, settings: Settings, history: History, p
 
 def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
                       history: History, gb: dict, aux: dict, reset_history=False) -> dict:
-    """Phase 2a — history confidence, hit-distance reconstruction, SIGMA,
-    RELAX, and REBLUR's temporal accumulation. Returns the ``mid`` dict for
-    ``image_frame_finish``; mid["gb_updates"] holds the G-buffer planes
-    changed here."""
+    """Phase 2a — history confidence, hit-distance reconstruction or the
+    checkerboard resolve, SIGMA, the occlusion planes of the occlusion
+    modes, RELAX, and REBLUR's temporal accumulation. Returns the ``mid``
+    dict for ``image_frame_finish``; mid["gb_updates"] holds the G-buffer
+    planes changed here."""
     frame = history.frame_index
     n_local = gb["view_z"].shape[0]
     w = cfg.width
@@ -233,6 +252,14 @@ def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
             for k in ("diff_hitdist", "spec_hitdist")
         }
         gb = dict(gb, **gb_updates)
+    if cfg.tracing_mode == TracingMode.HALF and n_local == cfg.n_pixels:
+        # each lobe was traced on half of the pixels: fill the others
+        cb = checkerboard.checkerboard_mask(h_local, w, frame)
+        diff = flat(checkerboard.resolve(img(diff), cb))
+        spec = flat(checkerboard.resolve(img(spec), ~cb))
+        gb_updates = {"diff_hitdist": flat(checkerboard.resolve(img(gb["diff_hitdist"]), cb)),
+                      "spec_hitdist": flat(checkerboard.resolve(img(gb["spec_hitdist"]), ~cb))}
+        gb = dict(gb, **gb_updates)
 
     new_h: dict[str, Any] = {"frame_index": frame + 1}
     if new_conf is not None:
@@ -244,6 +271,19 @@ def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
             history.sigma, img(shadow), img(gb["shadow_hit_dist"]), img(gb["view_z"]),
             img(gb["mv"]), tan_sun, unproj, frame, reset=reset_history)
         shadow = flat(shadow_img)
+
+    if cfg.nrd_mode in (NrdMode.OCCLUSION, NrdMode.DIRECTIONAL_OCCLUSION):
+        # the denoisers take [0, 1] occlusion planes in place of the radiance
+        nh_d = occlusion.norm_hitdist(gb["diff_hitdist"], gb["view_z"])
+        nh_s = occlusion.norm_hitdist(gb["spec_hitdist"], gb["view_z"])
+        if cfg.nrd_mode == NrdMode.DIRECTIONAL_OCCLUSION:
+            d_occ = occlusion.directional_occlusion(nh_d, gb["diff_dir"], gb["normal"])
+            s_occ = occlusion.directional_occlusion(nh_s, gb["spec_dir"], gb["normal"])
+        else:
+            d_occ = occlusion.occlusion_from_hitdist(nh_d)
+            s_occ = occlusion.occlusion_from_hitdist(nh_s)
+        diff = d_occ[..., None].expand(-1, 3).contiguous()
+        spec = s_occ[..., None].expand(-1, 3).contiguous()
 
     if cfg.denoiser == Denoiser.RELAX:
         s = relax.RelaxSettings(max_accumulated_frames=_max_acc(settings))
@@ -310,7 +350,9 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
             outs[sig] = flat(out_sig)
         diff, spec = outs["reblur_diff"], outs["reblur_spec"]
 
-    if cfg.nrd_mode == NrdMode.SH:
+    if cfg.nrd_mode in (NrdMode.OCCLUSION, NrdMode.DIRECTIONAL_OCCLUSION):
+        composed = occlusion.compose_occlusion(gb, diff[..., 0], spec[..., 0], shadow)
+    elif cfg.nrd_mode == NrdMode.SH:
         # the SH resolve re-sharpens each lobe with the shading normal
         composed = composition.compose(
             gb, sh.resolve({"radiance": diff, "dir": gb["diff_dir"]}, gb["normal"]),
@@ -338,6 +380,13 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
         final = flat(taa_out)
     if cfg.use_sharc:
         new_h["sharc"] = aux["sharc"]
+    if cfg.use_l1_cache:
+        # next frame's L1 cache: this frame's composed diffuse and specular
+        composed_diff = (gb["direct_lighting"] * shadow[..., None] + gb["emission"]
+                         + diff * gb["diff_factor"])
+        new_h["l1"] = l1cache.update_history(
+            cam, composed_diff, spec * gb["spec_factor"], gb["view_z"], gb["normal"],
+            cfgmod.sun_direction(settings), h_local, w)
     outputs = {
         "color": composed,
         "final": final,

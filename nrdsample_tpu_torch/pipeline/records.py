@@ -1,20 +1,83 @@
 """Settings + camera test records (counterpart of
-``nrdsample_tpu/pipeline/records.py``; loading only). A record is one entry
-of a ``Tests/<scene>.json`` list."""
+``nrdsample_tpu/pipeline/records.py``: loading, and the replay harness of
+``nrdsample_tpu/pipeline/replay.py``). A record is one entry of a
+``Tests/<scene>.json`` list; its ``render`` block pins RenderConfig fields
+and its ``animation`` block, where present, a short camera orbit.
+
+To replay one record on a device::
+
+    ctx, scene = records.build_replay_context("kitchen", device)
+    out, history, frames = records.replay_record(ctx, scene, "kitchen", 3, device)
+"""
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import torch
 
-from nrdsample_tpu_torch.config import Settings
+from nrdsample_tpu_torch.config import (Denoiser, NrdMode, RenderConfig, Settings,
+                                        TracingMode)
 from nrdsample_tpu_torch.device import resolve
-from nrdsample_tpu_torch.scene.types import Camera
+from nrdsample_tpu_torch.ops import traversal
+from nrdsample_tpu_torch.pipeline import frame
+from nrdsample_tpu_torch.scene import procedural
+from nrdsample_tpu_torch.scene.types import Camera, look_at
 
 RECORD_VERSIONS = (1, 2)
+TESTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "Tests")
+
+#: the scenes of the record files, at the replay harness's reduced sizes
+REPLAY_SCENES = {
+    "cornellbox": procedural.cornell_box,
+    "cornellbox-glass": procedural.cornell_box_glass,
+    "kitchen": procedural.kitchen,
+    "shaderballs": lambda: procedural.shader_balls(grid=2, sphere_res=12),
+    "interior-night": lambda: procedural.interior_night(n_lights=8, grid=2, sphere_res=10),
+    "exterior": lambda: procedural.exterior(blocks=2, window_grid=2, cobbles=8, tree_count=6,
+                                            tree_res=8, lamp_count=4),
+}
+#: the scenes replayed through an opaque and a transparent context; the
+#: interior's glass spheres stay in its one context, as in the JAX replay
+GLASS_SCENES = {"cornellbox-glass", "exterior"}
+
+#: Regression-sensitive records of each scene file (indices), one per
+#: non-default render bucket the corpus pins: replayed twice, they must give
+#: identical frames.
+CHECK_ME: dict[str, list[int]] = {
+    "cornellbox": [
+        0,    # legacy default bucket
+        3,    # REBLUR, bounce 1
+        4,    # RELAX, bounce 1
+        6,    # REBLUR, bounce 2, rpp 2
+        7,    # NrdMode.OCCLUSION
+        8,    # NrdMode.SH
+        10,   # TracingMode.FULL
+        11,   # TracingMode.HALF (checkerboard)
+        12,   # RELAX + TAA
+    ],
+    "kitchen": [
+        0,
+        2,    # PSR mirror walk
+        5,    # SHARC + history confidence
+        7,    # L1 cache
+    ],
+    "shaderballs": [0, 3],
+    "interior-night": [
+        0,
+        9,    # hair/SSS
+        147,  # blinking emitters (moving-emission fix + lights/cubes split)
+    ],
+    "cornellbox-glass": [
+        2,    # SIGMA translucency march
+    ],
+}
+
+_ENUMS = {"denoiser": Denoiser, "tracing_mode": TracingMode, "nrd_mode": NrdMode}
 
 
 def dict_to_record(d: dict, device=None) -> tuple[Settings, Camera]:
@@ -55,3 +118,81 @@ def load_record_full(path: str, index: int, device=None):
     zero = torch.zeros((), dtype=torch.float32, device=settings.debug.device)
     settings = dataclasses.replace(settings, debug=zero, separator=zero.clone())
     return settings, cam, d.get("render", {}), d.get("animation")
+
+
+def count_records(path: str) -> int:
+    """Number of records in a scene's record file (0 when it is missing)."""
+    if not os.path.exists(path):
+        return 0
+    with open(path) as f:
+        return len(json.load(f))
+
+
+def render_config(render: dict, **base) -> RenderConfig:
+    """The RenderConfig of a record's ``render`` block over the replay
+    harness's defaults (32x32, one path of one bounce, FULL_PROBABILISTIC,
+    REFERENCE), which ``base`` may replace; enum fields are given as ints.
+    A record that pins SHARC gets a 2^14-slot cache unless ``base`` sets
+    ``sharc_capacity``."""
+    kw = dict(width=32, height=32, rpp=1, bounce_num=1,
+              tracing_mode=TracingMode.FULL_PROBABILISTIC, denoiser=Denoiser.REFERENCE)
+    kw.update(base)
+    for k, v in render.items():
+        kw[k] = _ENUMS[k](v) if k in _ENUMS else v
+    if kw.get("use_sharc") and "sharc_capacity" not in base:
+        kw["sharc_capacity"] = 1 << 14
+    return RenderConfig(**kw)
+
+
+def orbit_cam(cam: Camera, step: int) -> Camera:
+    """The camera of frame ``step`` of an animated record: the eye turned by
+    4 degrees a frame about world z, still looking at the point 3 units
+    ahead of the record's eye (turned with it), at 60 degrees as built and
+    then with the record's FoV and aspect; ``view_to_world_prev`` is frame
+    step - 1's (its own at step 0). On the device of ``cam``."""
+    dev = cam.view_to_world.device
+
+    def at(i):
+        ang = np.deg2rad(4.0 * i)
+        v2w = cam.view_to_world.cpu().numpy()
+        eye = v2w[:3, 3]
+        c, s = np.cos(ang), np.sin(ang)
+        rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
+        target = eye + v2w[:3, 2] * 3.0
+        return look_at(eye=(rot @ eye).tolist(), target=(rot @ target).tolist(),
+                       fov_y_deg=60.0, device=dev)
+
+    cur, prev = at(step), at(max(step - 1, 0))
+    return dataclasses.replace(cur, view_to_world_prev=prev.view_to_world,
+                               tan_half_fov_y=cam.tan_half_fov_y, aspect=cam.aspect)
+
+
+def record_path(scene_name: str) -> str:
+    return os.path.join(TESTS_DIR, f"{scene_name}.json")
+
+
+def build_replay_context(scene_name: str, device=None):
+    """(ctx, scene) of a record file's scene at the replay size on
+    ``device`` (the CUDA card when None)."""
+    glass = scene_name in GLASS_SCENES
+    build = traversal.build_scene_contexts if glass else traversal.build_context
+    return build(REPLAY_SCENES[scene_name](), device=device)
+
+
+def replay_record(ctx, scene, scene_name: str, index: int, device=None, **base):
+    """Render record ``index`` of a scene file through all its frames: its
+    own RenderConfig (``render_config(render, **base)``), the history reset
+    at the first frame, an animated record's camera orbiting frame by frame
+    with the history carried. Returns (outputs of the last frame, history,
+    frames)."""
+    device = resolve(device)
+    settings, cam, render, animation = load_record_full(record_path(scene_name), index, device)
+    cfg = render_config(render, **base)
+    hist = frame.History.create(cfg, device)
+    frames = (animation or {}).get("frames", 1)
+    out = None
+    for step in range(frames):
+        frame_cam = orbit_cam(cam, step) if animation else cam
+        out, hist = frame.render_frame(ctx, scene, frame_cam, cfg, settings, hist,
+                                       reset_history=step == 0)
+    return out, hist, frames

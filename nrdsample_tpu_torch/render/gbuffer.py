@@ -19,9 +19,13 @@ _COBALT = (0.672411, 0.637331, 0.585456)
 
 def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.Tensor,
                sun_dir: torch.Tensor, tan_sun_radius, white_furnace: bool = False,
-               emission_scale=1.0, forced_material=None, emission_scale_cubes=None) -> dict:
+               emission_scale=1.0, forced_material=None, emission_scale_cubes=None,
+               with_tangent: bool = False) -> dict:
     """Geometry + material props of each ray's hit. On a miss lemi is the
-    sky radiance along the ray and base_color is 0."""
+    sky radiance along the ray and base_color is 0. ``with_tangent`` adds
+    props["tangent"], the interpolated vertex tangent made orthogonal to
+    the shading normal (the normal's orthonormal-basis tangent where it
+    vanishes), for the hair BCSDF."""
     tri = torch.clamp_min(hit["tri"], 0).long()
     miss = hit["tri"] < 0
     u = hit["u"]
@@ -51,6 +55,13 @@ def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.T
     # two-sided: flip normals to face the incoming ray
     n_geom = n_geom * torch.sign(geo.dot3(n_geom, view))[..., None]
     n_smooth = n_smooth * torch.sign(geo.dot3(n_smooth, view))[..., None]
+    tangent = None
+    if with_tangent:
+        tt = torch.cat([tr.t0, tr.t1, tr.t2], dim=1)[tri]
+        t_raw = w[..., None] * tt[..., 0:3] + u[..., None] * tt[..., 3:6] + v_bc[..., None] * tt[..., 6:9]
+        t_raw = t_raw - n_smooth * geo.dot3(t_raw, n_smooth)[..., None]
+        t_fallback, _ = geo.orthonormal_basis(n_smooth)
+        tangent = geo.normalize(torch.where(geo.length(t_raw)[..., None] > 1e-6, t_raw, t_fallback))
 
     mats = scene.materials
     mat_pack = torch.cat(
@@ -94,7 +105,7 @@ def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.T
     base_color = torch.where(miss[..., None], 0.0, base_color)
 
     zeros = torch.zeros_like(t)
-    return {
+    out = {
         "miss": miss,
         "t": torch.where(miss, T_MAX, t),
         "x": x,
@@ -118,6 +129,9 @@ def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.T
         ),
         "mip": zeros,
     }
+    if tangent is not None:
+        out["tangent"] = tangent
+    return out
 
 
 def apply_overrides(props: dict, roughness_override, metalness_override) -> dict:

@@ -8,6 +8,7 @@ import torch
 from nrdsample_tpu_torch import config as cfg
 from nrdsample_tpu_torch.mathlib import brdf, color, geometry as geo, rng, sampling
 from nrdsample_tpu_torch.ops import traversal
+from nrdsample_tpu_torch.render import hair_sss
 
 
 def _vec3(values, like):
@@ -65,9 +66,13 @@ def sun_basis(sun_dir: torch.Tensor):
 
 
 def direct_sun_lighting(n, v, base_color, metalness, roughness, sun_dir,
-                        tan_angular_radius, white_furnace: bool = False):
+                        tan_angular_radius, white_furnace: bool = False,
+                        flags=None, tangent=None):
     """Unshadowed sun + pseudo-sky-IS lighting at a surface [..., 3]; the
-    shadow term is applied separately."""
+    shadow term is applied separately. With ``flags`` (use_hair_sss),
+    FLAG_HAIR surfaces take the hair BCSDF along ``tangent`` (where it is
+    None, the first axis of the normal's orthonormal basis) and FLAG_SKIN
+    surfaces the subsurface wrap diffuse."""
     csun = sun_intensity(sun_dir[None, :], sun_dir, tan_angular_radius, white_furnace)[0]
     csky = sky_intensity(-v, sun_dir, tan_angular_radius, white_furnace)
     n_dot_l = torch.clamp(geo.dot3(n, sun_dir), 0.0, 1.0)
@@ -91,7 +96,20 @@ def direct_sun_lighting(n, v, base_color, metalness, roughness, sun_dir,
     cdiff = (csun * albedo) * n_dot_l[..., None] / sampling.PI
 
     lighting = cspec * cimp + cdiff * (1.0 - f)
-    return lighting * shadow_fade[..., None]
+    lighting = lighting * shadow_fade[..., None]
+
+    if flags is not None:
+        is_skin = (flags & cfg.FLAG_SKIN) != 0
+        if tangent is None:
+            tangent, _ = geo.orthonormal_basis(n)
+        is_hair = (flags & cfg.FLAG_HAIR) != 0
+        sss = csun * albedo * hair_sss.sss_wrap_diffuse(geo.dot3(n, sun_dir),
+                                                        base_color) / sampling.PI
+        lighting = torch.where(is_skin[..., None], sss + cspec * cimp, lighting)
+        bcsdf = hair_sss.hair_bcsdf_eval(sun_dir, v, tangent, base_color, roughness)
+        hair_l = csun * bcsdf * torch.clamp(geo.dot3(n, sun_dir) * 0.5 + 0.5, 0.0, 1.0)[..., None]
+        lighting = torch.where(is_hair[..., None], hair_l, lighting)
+    return lighting
 
 
 def sun_shadow_ray_params(x, n, sun_dir, tan_angular_radius, pixel_idx, frame,

@@ -17,32 +17,19 @@ from nrdsample_tpu_torch.config import Denoiser, RenderConfig, Settings, Tracing
 from nrdsample_tpu_torch.denoise.reblur import spec_magic_curve
 from nrdsample_tpu_torch.mathlib import bluenoise, brdf, color, geometry as geo, rng, sampling
 from nrdsample_tpu_torch.ops import sharc, traversal
-from nrdsample_tpu_torch.render import emissive_is, gbuffer, lighting, raycone
+from nrdsample_tpu_torch.render import emissive_is, gbuffer, l1cache, lighting, raycone
 from nrdsample_tpu_torch.scene import camera as cam_mod
 from nrdsample_tpu_torch.scene.types import Camera, Scene
 
 
 def check_config_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for every RenderConfig branch the port does
-    not have yet, naming the slice that brings it."""
+    not have yet, naming where it stands in ROADMAP Queue 1."""
     later = {
         "denoiser NEURAL (post/neural_rr.py, off the frame path)": cfg.denoiser == Denoiser.NEURAL,
-        "use_l1_cache (render/l1cache.py, a later slice)": cfg.use_l1_cache,
-        "psr_bounce_num > 0 (the PSR walk, a later slice)": cfg.psr_bounce_num > 0,
-        "tracing_mode HALF (checkerboard.resolve, a later slice)":
-            cfg.tracing_mode == TracingMode.HALF,
-        "nrd_mode OCCLUSION or DIRECTIONAL_OCCLUSION (denoise/occlusion.py, a later slice)":
-            cfg.nrd_mode in (cfgmod.NrdMode.OCCLUSION, cfgmod.NrdMode.DIRECTIONAL_OCCLUSION),
         "enable_post (post chain, off the frame path)": cfg.enable_post,
         "on_screen != FINAL (debug views, a later slice)": cfg.on_screen != cfgmod.OnScreen.FINAL,
         "use_validation_overlay (a later slice)": cfg.use_validation_overlay,
-        "stress tests (the record corpus, a later slice, ROADMAP Queue 1 item 3)":
-            (cfg.use_inf_stress_test or cfg.use_drs_stress_test or cfg.use_firefly_test
-             or cfg.use_material_id_test),
-        "use_sanitization (the record corpus, a later slice, ROADMAP Queue 1 item 3)":
-            cfg.use_sanitization,
-        "use_hair_sss (the record corpus, a later slice, ROADMAP Queue 1 item 3)":
-            cfg.use_hair_sss,
     }
     missing = [name for name, on in later.items() if on]
     if missing:
@@ -167,12 +154,14 @@ def generate_ray_and_update_throughput(props: dict, throughput: torch.Tensor,
 def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                 cfg: RenderConfig, settings: Settings, frame,
                 props0: dict, pixel_idx: torch.Tensor, cone0: dict, primary_shadow: tuple,
-                sharc_state: sharc.SharcState | None = None):
+                sharc_state: sharc.SharcState | None = None, l1_hist=None):
     """The TraceOpaque() path loop for all pixels. Returns the demodulated
     diff/spec radiance, normalized hit distances and the visibility and
     blocker distance of the caller's ``primary_shadow`` rays (origin,
-    direction), which join the single batched shadow launch. With
-    ``sharc_state`` a bounce hit may take its radiance from the cache."""
+    direction), which join the single batched shadow launch. A bounce hit
+    may take its radiance from the L1 cache's previous frame (``l1_hist``)
+    and then from the SHARC cache (``sharc_state``). In HALF tracing mode
+    the first bounce's lobe is the pixel's checkerboard colour."""
     n_px = pixel_idx.shape[0]
     f32 = cfg.dtype
     dev = pixel_idx.device
@@ -231,6 +220,8 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
             if cfg.tracing_mode == TracingMode.FULL_PROBABILISTIC or bounce > 1:
                 sel_pdf = torch.where(is_diffuse, diffuse_prob, 1.0 - diffuse_prob)
                 throughput = throughput / torch.clamp_min(sel_pdf, 1e-6)[..., None]
+            elif cfg.tracing_mode == TracingMode.HALF:
+                is_diffuse = rng.checkerboard(px, py, frame).to(torch.bool)
             else:  # FULL: alternate paths
                 is_diffuse = torch.full((n_px,), bool(path & 1), device=dev)
 
@@ -261,11 +252,14 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                 scene, hit, xo, ray, sun_dir, tan_sun, cfg.use_white_furnace,
                 settings.emission_intensity, forced_material=settings.forced_material,
                 emission_scale_cubes=settings.emission_intensity_cubes,
+                with_tangent=cfg.use_hair_sss,
             )
 
             direct = lighting.direct_sun_lighting(
                 props["n"], props["v"], props["base_color"], props["metalness"],
                 props["roughness"], sun_dir, tan_sun, cfg.use_white_furnace,
+                flags=props["flags"] if cfg.use_hair_sss else None,
+                tangent=props.get("tangent"),
             )
             view_z_b = cam_mod.world_to_view_z(cam, props["x"])
             sxo, sdir = lighting.sun_shadow_ray_params(
@@ -277,6 +271,16 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
             l_hit1 = direct + props["lemi"]    # shadow = 1
             l_cached = props["lemi"]
             cache_w = zeros1()
+
+            if l1_hist is not None:
+                # the L1 cache: the previous frame's composed radiance
+                # reprojected onto the hit
+                l1, w1 = l1cache.radiance_from_previous_frame(
+                    l1_hist, cam, props, pixel_idx, cfg.width, cfg.height, sun_dir,
+                    settings.prev_frame_confidence)
+                use_l1 = (w1 > 0.0) & ~props["miss"]
+                l_cached = torch.where(use_l1[..., None], l1, l_cached)
+                cache_w = torch.where(use_l1, w1, cache_w)
 
             if sharc_state is not None:
                 # L2 SHARC lookup, gated by the lobe's footprint against the
@@ -405,13 +409,79 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
     }
 
 
+def is_delta(props: dict) -> torch.Tensor:
+    """IsDelta: the mirror-like hits (roughness below 0.041, and metal or
+    dark) that the PSR walk passes through."""
+    bc = props["base_color"]
+    luma = torch.tensor([0.2126, 0.7152, 0.0722], dtype=bc.dtype, device=bc.device)
+    dark = (bc * luma).sum(-1) < 0.005
+    return (props["roughness"] < 0.041) & ((props["metalness"] > 0.941) | dark) & ~props["miss"]
+
+
+def psr_walk(ctx, scene, cfg: RenderConfig, settings: Settings, cam: Camera, props: dict,
+             sun_dir, tan_sun, unproject):
+    """Primary Surface Replacement: follow up to cfg.psr_bounce_num mirror
+    (delta) bounces from the primary hits, so that the G-buffer describes
+    the virtual surface seen in the mirror. Every lane is traced (one
+    ``traversal.closest_hit`` a bounce); only delta lanes advance.
+
+    Returns (props', l_psr (N, 3) the emission seen along the chain,
+    psr_throughput (N, 3) the chain's Fresnel product, virt_dist (N,) the
+    accumulated thin-lens-corrected distance that places the virtual
+    surface, mirror_mat (N, 3, 3) the product of the chain's Householder
+    matrices)."""
+    n_px = props["x"].shape[0]
+    f32, dev = cfg.dtype, props["x"].device
+    l_psr = torch.zeros((n_px, 3), dtype=f32, device=dev)
+    throughput = torch.ones((n_px, 3), dtype=f32, device=dev)
+    virt_dist = torch.zeros((n_px,), dtype=f32, device=dev)
+    acc_curv = torch.zeros((n_px,), dtype=f32, device=dev)
+    eye = torch.eye(3, dtype=f32, device=dev).expand(n_px, 3, 3)
+    mirror_mat = eye
+    for _ in range(cfg.psr_bounce_num):
+        delta = is_delta(props)
+        # the curvature accumulates at the origin of each mirror bounce
+        acc_curv = torch.where(delta, acc_curv + props["curvature"], acc_curv)
+        n_s = props["n"]
+        house = eye - 2.0 * n_s[:, :, None] * n_s[:, None, :]
+        mirror_mat = torch.where(delta[:, None, None], torch.bmm(house, mirror_mat), mirror_mat)
+        _, f0 = brdf.base_color_to_f0_albedo(props["base_color"], props["metalness"])
+        f = brdf.fresnel_schlick(f0, torch.abs(geo.dot3(props["v"], props["n"])))
+        ray = geo.reflect(-props["v"], props["n"])
+        vz = cam_mod.world_to_view_z(cam, props["x"])
+        xo = geo.offset_ray(props["x"], props["n_geom"], vz, unproject, cfgmod.PT_BOUNCE_RAY_OFFSET)
+        hit = traversal.closest_hit(ctx, xo, ray)
+        new_props = gbuffer.decode_hit(
+            scene, hit, xo, ray, sun_dir, tan_sun, cfg.use_white_furnace,
+            settings.emission_intensity, forced_material=settings.forced_material,
+            emission_scale_cubes=settings.emission_intensity_cubes,
+            with_tangent=cfg.use_hair_sss,
+        )
+        new_throughput = throughput * f
+        l_new = l_psr + new_throughput * new_props["lemi"] * (~new_props["miss"])[..., None]
+        props = {k: torch.where(delta.view(-1, *([1] * (new_props[k].dim() - 1))),
+                                new_props[k], props[k]) for k in props}
+        sel = delta[..., None]
+        throughput = torch.where(sel, new_throughput, throughput)
+        l_psr = torch.where(sel, l_new, l_psr)
+        # thin lens: a curved mirror moves the virtual image off the
+        # unfolded distance
+        thin = new_props["t"] / (2.0 * acc_curv * new_props["t"] + 1.0)
+        virt_dist = torch.where(delta, virt_dist + thin, virt_dist)
+    return props, l_psr, throughput, virt_dist, mirror_mat
+
+
 def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                  cfg: RenderConfig, settings: Settings, frame,
                  pixel_idx: torch.Tensor | None = None,
-                 sharc_state: sharc.SharcState | None = None):
+                 sharc_state: sharc.SharcState | None = None, l1_hist=None):
     """Primary ray + G-buffer + indirect path loop (TraceOpaque.cs.hlsl main).
     ``pixel_idx`` (flat int32 indices) selects the pixels to trace;
-    ``sharc_state`` is the radiance cache the bounces may read."""
+    ``sharc_state`` is the radiance cache the bounces may read, ``l1_hist``
+    the L1 cache's previous frame. With cfg.psr_bounce_num > 0 the PSR walk
+    replaces mirror pixels' G-buffer by the virtual surface: view-z and
+    motion at the virtual point, the normal unfolded through the transposed
+    mirror matrix."""
     check_config_supported(cfg)
     dev = scene.tris.p0.device
     if pixel_idx is None:
@@ -433,20 +503,32 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
     props = gbuffer.decode_hit(
         scene, hit, origin, direction, sun_dir, tan_sun, cfg.use_white_furnace,
         settings.emission_intensity, forced_material=settings.forced_material,
-        emission_scale_cubes=settings.emission_intensity_cubes,
+        emission_scale_cubes=settings.emission_intensity_cubes, with_tangent=cfg.use_hair_sss,
     )
     props = gbuffer.apply_overrides(props, settings.roughness_override, settings.metalness_override)
 
     l_psr = torch.zeros((n_px, 3), dtype=cfg.dtype, device=dev)
     psr_throughput = torch.ones((n_px, 3), dtype=cfg.dtype, device=dev)
+    primary_t0 = props["t"]
+    gb_normal = props["n"]
     x_gbuf = props["x"]
+    if cfg.psr_bounce_num > 0:
+        x0, v0 = props["x"], props["v"]
+        props, l_psr, psr_throughput, virt_dist, mirror_mat = psr_walk(
+            ctx, scene, cfg, settings, cam, props, sun_dir, tan_sun, unproject)
+        # the virtual surface X0 - V0 * distance, and its normal unfolded
+        # into camera space by the inverse (transposed) mirror matrix
+        x_gbuf = x0 - v0 * virt_dist[..., None]
+        gb_normal = torch.einsum("nji,nj->ni", mirror_mat, props["n"])
     view_z = torch.where(props["miss"], cfgmod.INF, cam_mod.world_to_view_z(cam, x_gbuf))
+    # motion at the (virtual) point of a static scene: Xprev = X
     mv = cam_mod.get_motion(cam, x_gbuf, x_gbuf, cfg.width, cfg.height)
 
     # direct lighting at the primary hit: unshadowed sun + emission
     direct = lighting.direct_sun_lighting(
         props["n"], props["v"], props["base_color"], props["metalness"],
         props["roughness"], sun_dir, tan_sun, cfg.use_white_furnace,
+        flags=props["flags"] if cfg.use_hair_sss else None, tangent=props.get("tangent"),
     )
     direct = torch.where(props["miss"][..., None], 0.0, direct)
     emission = torch.where(
@@ -460,7 +542,8 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         unproject, view_z, dim=501, rnd=_shadow_rnd(cfg, pixel_idx, frame, 501),
     )
     paths = trace_paths(ctx, scene, cam, cfg, settings, frame, props, pixel_idx,
-                        cone0=cone, primary_shadow=(p_sxo, p_sdir), sharc_state=sharc_state)
+                        cone0=cone, primary_shadow=(p_sxo, p_sdir), sharc_state=sharc_state,
+                        l1_hist=l1_hist)
     shadow = paths.pop("primary_shadow")
     shadow = torch.where(props["miss"], 1.0, shadow)
     shadow = torch.where(settings.disable_shadows > 0, 1.0, shadow)
@@ -472,7 +555,7 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         "view_z": view_z,
         "mv": mv,
         "mv_world": x_gbuf - x_gbuf,
-        "normal": props["n"],
+        "normal": gb_normal,
         "roughness": props["roughness"],
         "metalness": props["metalness"],
         "base_color": props["base_color"],
@@ -485,7 +568,7 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         "shadow_ray": (p_sxo, p_sdir),
         "miss": props["miss"],
         "primary_x": x_gbuf,
-        "primary_t": props["t"],
+        "primary_t": primary_t0,
         "uv": uv,
         "tri": props["tri"],
         "flags": props["flags"],

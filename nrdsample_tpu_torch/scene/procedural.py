@@ -1,7 +1,8 @@
 """Procedural test scenes (counterpart of ``nrdsample_tpu/scene/procedural.py``):
-the Cornell box, the shader balls, the kitchen and the exterior street block,
-built with the same host numpy code (and the same ``RandomState`` draws) so
-the arrays equal the JAX builders' exactly."""
+the Cornell box and its glass variant, the shader balls, the kitchen, the
+interior at night, the mirror room and the exterior street block, built with
+the same host numpy code (and the same ``RandomState`` draws) so the arrays
+equal the JAX builders' exactly."""
 
 from __future__ import annotations
 
@@ -186,6 +187,43 @@ def cornell_box(furnace: bool = False, light_intensity: float = 17.0) -> Scene:
     return _assemble(parts, materials, max_emissive=8)
 
 
+def cornell_box_glass(light_intensity: float = 17.0) -> Scene:
+    """The Cornell box with a glass sphere (FLAG_TRANSPARENT) in place of the
+    short box: the record corpus's glass scene, traced through
+    ``build_scene_contexts``."""
+    sv, si, sn = make_sphere([0.45, -0.4, 1.25], 0.38, 18, 26)
+    white = [0.73, 0.735, 0.729]
+    materials = {
+        "base_color": [white, [0.611, 0.056, 0.062], [0.117, 0.435, 0.115],
+                       white, [0.8, 0.8, 0.8], [1.0, 1.0, 1.0]],
+        "metalness": [0.0] * 6,
+        "roughness": [1.0, 1.0, 1.0, 1.0, 1.0, 0.0],
+        "emission": [[0, 0, 0]] * 3 + [[light_intensity] * 3] + [[0, 0, 0]] * 2,
+        "ior": [1.5] * 6,
+        "flags": [config.FLAG_NON_TRANSPARENT] * 5 + [config.FLAG_TRANSPARENT],
+    }
+    floor = _quad([-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0])
+    ceil = _quad([-1, -1, 2], [-1, 1, 2], [1, 1, 2], [1, -1, 2])
+    back = _quad([-1, 1, 0], [1, 1, 0], [1, 1, 2], [-1, 1, 2])
+    left = _quad([-1, -1, 0], [-1, 1, 0], [-1, 1, 2], [-1, -1, 2])
+    right = _quad([1, -1, 0], [1, -1, 2], [1, 1, 2], [1, 1, 0])
+    light = _quad([-0.24, -0.22, 1.98], [-0.24, 0.16, 1.98],
+                  [0.23, 0.16, 1.98], [0.23, -0.22, 1.98])
+    tb_v, tb_i = make_box([-0.33, 0.28, 0.6], [0.6, 0.6, 1.2])
+    tb_v = _rot_z(tb_v, 16.0, [-0.33, 0.28, 0])
+    parts = [
+        (floor[0], floor[1], None, 0),
+        (ceil[0], ceil[1], None, 0),
+        (back[0], back[1], None, 0),
+        (left[0], left[1], None, 1),
+        (right[0], right[1], None, 2),
+        (light[0], light[1], None, 3),
+        (tb_v, tb_i, None, 4),
+        (sv, si, sn, 5),
+    ]
+    return _assemble(parts, materials, max_emissive=8)
+
+
 def shader_balls(grid: int = 3, sphere_res: int = 24) -> Scene:
     """Grid of spheres with varying roughness/metalness over a floor plane.
 
@@ -261,6 +299,91 @@ def kitchen(light_intensity: float = 8.0) -> Scene:
     lv, li = _quad([-0.5, -0.3, 2.97], [-0.5, 0.3, 2.97], [0.5, 0.3, 2.97], [0.5, -0.3, 2.97])
     parts.append((lv, li, None, 3))
     return _assemble(parts, mats, max_emissive=8)
+
+
+def interior_night(n_lights: int = 12, grid: int = 4, sphere_res: int = 16,
+                   light_intensity: float = 25.0) -> Scene:
+    """A dark interior lit only by small emissive ceiling panels (the bench
+    ladder's interior1440 scene; 15,494 triangles and 24 emitters at the
+    defaults): tables with glass (FLAG_TRANSPARENT) and metal spheres. The
+    bench and the record corpus trace it in one context (``build_context``),
+    the glass spheres among the opaque triangles."""
+    parts = []
+    base_color = [
+        [0.55, 0.5, 0.45],    # walls
+        [0.35, 0.25, 0.2],    # floor wood
+        [0.9, 0.9, 0.92],     # metal
+        [0.95, 0.95, 0.98],   # glass
+        [0.6, 0.2, 0.15],     # cloth red
+    ]
+    metalness = [0.0, 0.0, 0.95, 0.0, 0.0]
+    roughness = [0.85, 0.45, 0.15, 0.05, 0.8]
+    emission = [[0, 0, 0]] * 5
+    flags = [config.FLAG_NON_TRANSPARENT] * 3 + [
+        config.FLAG_TRANSPARENT, config.FLAG_NON_TRANSPARENT
+    ]
+    ior = [1.5] * 5
+    rs = np.random.RandomState(7)
+    for _ in range(n_lights):
+        # warm light colours of varied hue
+        c = np.array([1.0, 0.55 + 0.4 * rs.rand(), 0.25 + 0.3 * rs.rand()])
+        base_color.append([0.9, 0.9, 0.9])
+        metalness.append(0.0)
+        roughness.append(1.0)
+        emission.append(list(c * light_intensity))
+        flags.append(config.FLAG_NON_TRANSPARENT | config.FLAG_FORCED_EMISSION)
+        ior.append(1.5)
+    mats = {
+        "base_color": base_color, "metalness": metalness,
+        "roughness": roughness, "emission": emission,
+        "flags": flags, "ior": ior,
+    }
+    # room shell 10x8x4, inward normals, and a wood floor overlay
+    v, i = make_box([0, 0, 2.0], [10, 8, 4], flip=True)
+    parts.append((v, i, None, 0))
+    fv, fi = _quad([-5, -4, 0.01], [5, -4, 0.01], [5, 4, 0.01], [-5, 4, 0.01])
+    parts.append((fv, fi, None, 1))
+    # tables with a glass and a metal sphere each
+    for gx in range(grid):
+        for gy in range(2):
+            cx = -3.5 + gx * 7.0 / max(grid - 1, 1)
+            cy = -2.0 + gy * 4.0
+            v, i = make_box([cx, cy, 0.5], [1.2, 1.2, 1.0])
+            parts.append((v, i, None, 4))
+            sv, si, sn = make_sphere([cx - 0.25, cy, 1.25], 0.22, sphere_res, sphere_res * 2)
+            parts.append((sv, si, sn, 3))
+            sv, si, sn = make_sphere([cx + 0.3, cy + 0.2, 1.18], 0.16, sphere_res, sphere_res * 2)
+            parts.append((sv, si, sn, 2))
+    # the emissive ceiling panels
+    for k in range(n_lights):
+        lx = -4.0 + (k % 4) * 2.6 + rs.rand() * 0.4
+        ly = -3.0 + (k // 4) * 2.8 + rs.rand() * 0.4
+        s = 0.25 + 0.2 * rs.rand()
+        lv, li = _quad([lx - s, ly - s, 3.95], [lx - s, ly + s, 3.95],
+                       [lx + s, ly + s, 3.95], [lx + s, ly - s, 3.95])
+        parts.append((lv, li, None, 5 + k))
+    return _assemble(parts, mats, max_emissive=max(64, 4 * n_lights))
+
+
+def mirror_room(box_emission: float = 0.0) -> Scene:
+    """A planar mirror floor (metalness 1, roughness 0.01: a delta surface
+    for the PSR walk) under a floating diffuse box, before a diffuse wall:
+    pixels on the mirror export the virtual surface behind it."""
+    materials = {
+        "base_color": [[0.95, 0.95, 0.95], [0.6, 0.2, 0.2], [0.7, 0.7, 0.7]],
+        "metalness": [1.0, 0.0, 0.0],
+        "roughness": [0.01, 0.9, 0.9],
+        "emission": [[0, 0, 0], [box_emission] * 3, [0, 0, 0]],
+    }
+    floor_v, floor_i = make_plane([0.0, 0.0, 0.0], [8.0, 8.0])
+    box_v, box_i = make_box([0.0, 0.0, 1.0], [1.0, 1.0, 0.6])
+    wall = _quad([-4, 4, 0], [4, 4, 0], [4, 4, 4], [-4, 4, 4])
+    parts = [
+        (floor_v, floor_i, None, 0),   # mirror
+        (box_v, box_i, None, 1),       # floating box
+        (wall[0], wall[1], None, 2),   # diffuse back wall
+    ]
+    return _assemble(parts, materials, max_emissive=8)
 
 
 def exterior(blocks: int = 4, window_grid: int = 6, cobbles: int = 60,

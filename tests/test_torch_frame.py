@@ -29,7 +29,7 @@ from nrdsample_tpu_torch import config, convert
 from nrdsample_tpu_torch.config import Denoiser, NrdMode, OnScreen, RenderConfig, TracingMode
 from nrdsample_tpu_torch.ops import emissive_probe, intersect, traversal
 from nrdsample_tpu_torch.pipeline import frame, records
-from nrdsample_tpu_torch.render import emissive_is
+from nrdsample_tpu_torch.render import emissive_is, stress
 from nrdsample_tpu_torch.scene import procedural
 from nrdsample_tpu_torch.scene.types import look_at
 from torch_session_cache import session_cached, share_cores_between_workers
@@ -165,28 +165,45 @@ LATER_CONFIGS = {
     "material_id": dict(use_material_id_test=True),
     "sanitization": dict(use_sanitization=True),
     "hair_sss": dict(use_hair_sss=True),
+    "nrd_occlusion": dict(nrd_mode=NrdMode.OCCLUSION),
+    "nrd_directional_occlusion": dict(nrd_mode=NrdMode.DIRECTIONAL_OCCLUSION, denoiser=Denoiser.RELAX),
 }
 
 
 #: branches of LATER_CONFIGS that the port has since gained
-PORTED_CONFIGS = {"reblur", "relax", "sharc", "taa", "nrd_sh"}
+PORTED_CONFIGS = {"reblur", "relax", "sharc", "taa", "nrd_sh", "psr", "half", "l1_cache",
+                  "inf_stress", "drs_stress", "firefly", "material_id", "sanitization",
+                  "hair_sss", "nrd_occlusion", "nrd_directional_occlusion"}
 
 
 @pytest.mark.parametrize("name", sorted(LATER_CONFIGS))
 def test_later_config_branches_raise(name):
     """A branch of a later slice raises NotImplementedError from
-    History.create and from render_frame. REBLUR, RELAX, SHARC, TAA and the
-    SH resolve are ported now: their 8x8 frame of the Cornell box is finite
-    and their histories advance."""
+    History.create and from render_frame. REBLUR, RELAX, SHARC, TAA, the SH
+    resolve, the PSR walk, HALF tracing, the L1 cache, the four stress tests,
+    sanitization, hair/SSS and the two occlusion modes are ported now: their
+    8x8 frame of the Cornell box is finite (under the inf stress test, NaN
+    exactly where view-z is outside the denoising range) and their
+    histories advance."""
     cfg = RenderConfig(width=8, height=8, sharc_capacity=1 << 10, **LATER_CONFIGS[name])
     ctx, scene = traversal.build_context(procedural.cornell_box(), device="cpu")
     cam = look_at([0, -3, 1], [0, 0, 1], device="cpu")
     if name in PORTED_CONFIGS:
         out, h = frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
                                     frame.History.create(cfg, "cpu"))
+        far = out["view_z"].abs() > stress.DENOISING_RANGE if name == "inf_stress" else None
         for plane in ("color", "final"):
+            if far is not None:
+                assert torch.equal(~torch.isfinite(out[plane]).all(-1), far)
+                assert float(out[plane][~far].mean()) > 0.0
+                continue
             assert bool(torch.isfinite(out[plane]).all()) and float(out[plane].mean()) > 0.0
         assert int(h.frame_index) == 1
+        if name == "l1_cache":
+            assert int(h.l1.valid) == 1 and h.l1.packed.shape == (8, 8, 7)
+        elif name == "material_id":
+            stripes = out["gbuffer"]["material_id"].reshape(8, 8)
+            assert bool((stripes == 0.0).all())   # rows 0-7: the first stripe
         if name in ("reblur", "relax"):
             # one frame accumulated (anti-lag may cut REBLUR's count below 1)
             assert h.reference is None

@@ -7,7 +7,8 @@ frame beside the port's frame) take minutes each. ``session_cached`` lets the
 first worker compute the value and save it, as numpy arrays, in the
 session's shared temporary directory (the parent of every worker's
 ``basetemp``), under an ``fcntl`` lock; the other workers wait on the lock
-and load it. Torch tensors come back as CPU torch tensors, JAX arrays as
+and load it, or, given the other values their tests need, compute one of
+those meanwhile. Torch tensors come back as CPU torch tensors, JAX arrays as
 numpy arrays. Without xdist the value is simply computed.
 
 ``jax_native_order_ready`` makes sure that the JAX package's cluster builds,
@@ -86,19 +87,46 @@ def _session_lock(tmp_path_factory, name: str):
         yield root
 
 
-def session_cached(tmp_path_factory, name: str, compute):
+def _save_once(root, name: str, compute):
+    """Save compute()'s value as ``name`` unless it is saved already; the
+    caller holds ``name``'s lock."""
+    path = root / f"{name}.pkl"
+    if not path.exists():
+        tmp = root / f"{name}.tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(_to_numpy(compute()), f)
+        os.replace(tmp, path)
+    return path
+
+
+def _save_if_free(root, name: str, compute) -> bool:
+    """Compute and save ``name`` if no worker holds its lock; False if one
+    does."""
+    with open(root / f"{name}.lock", "w") as lock:
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            return False
+        _save_once(root, name, compute)
+        return True
+
+
+def session_cached(tmp_path_factory, name: str, compute, others: dict | None = None):
     """compute() once per session across xdist workers; see the module
-    docstring."""
+    docstring. ``others``, {name: compute} of the values the same tests need
+    besides this one, lets a worker that finds this value being computed
+    by another worker compute one of those that no worker has saved or
+    started, rather than wait idle on the lock."""
     if os.environ.get("PYTEST_XDIST_WORKER") is None:
         return compute()
-    with _session_lock(tmp_path_factory, name) as root:
-        path = root / f"{name}.pkl"
-        if not path.exists():
-            tmp = root / f"{name}.tmp"
-            with open(tmp, "wb") as f:
-                pickle.dump(_to_numpy(compute()), f)
-            os.replace(tmp, path)
-        with open(path, "rb") as f:
+    root = tmp_path_factory.getbasetemp().parent
+    pending = [(k, fn) for k, fn in (others or {}).items() if k != name]
+    while pending and not _save_if_free(root, name, compute):
+        other, fn = pending.pop(0)
+        if not (root / f"{other}.pkl").exists():
+            _save_if_free(root, other, fn)
+    with _session_lock(tmp_path_factory, name):
+        with open(_save_once(root, name, compute), "rb") as f:
             value = pickle.load(f)
     return _from_numpy(value)
 
