@@ -23,8 +23,12 @@ replays the 344
 records of ``Tests/*.json`` on the card (the CHECK_ME records twice, one
 record of each branch the corpus adds against its CPU frame), holds the
 card's NaN positions to the CPU's under the inf stress test without
-sanitization (REBLUR, and RELAX + TAA), and prints one JSON line of kernels
-plus a final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
+sanitization (REBLUR, and RELAX + TAA), runs the output chain (kitchen1080
+with the post chain to 3840x2160 and with the learned RR denoiser, timed;
+every gather call of an RR frame against its plain version; the networks and
+a 192x192 -> 384x384 image phase against the CPU; the held-out RR gate; every
+debug view; the port's CLI as a subprocess), and prints one JSON line of
+kernels plus a final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
 with no result line. It also runs the backward of the three denoiser
 dispatchers on (1080, 1920) planes that require grad (the kernel's forward,
 the plain version's gradient) and the TAA kernel on the kitchen1080 frame's
@@ -610,10 +614,11 @@ def recording(specs: dict):
             setattr(mod, attr, fn)
 
 
-def check_frame_calls(calls: dict, launches: dict, cs, scene, card: str) -> dict:
-    """Hold each recorded call of a frame (``recording``) against its plain
-    version on the same inputs; fails on a disagreement, or where a kernel
-    has no recorded call or fewer than its launches in the frame.
+def check_frame_calls(calls: dict, launches: dict, cs, scene, card: str,
+                      label: str = "interior1440") -> dict:
+    """Hold each recorded call of the ``label`` frame (``recording``) against
+    its plain version on the same inputs; fails on a disagreement, or where
+    a kernel has no recorded call or fewer than its launches in the frame.
     Returns {kernel: max |err|}."""
     from nrdsample_tpu_torch.denoise import relax, taa
     from nrdsample_tpu_torch.mathlib import filtering
@@ -623,14 +628,14 @@ def check_frame_calls(calls: dict, launches: dict, cs, scene, card: str) -> dict
     frame_err = {}
     for name, got_calls in calls.items():
         if not got_calls or len(got_calls) < launches[name]:
-            fail(f"the recorded interior1440 frame made {len(got_calls)} {name} calls and "
+            fail(f"the recorded {label} frame made {len(got_calls)} {name} calls and "
                  f"{launches[name]} launches: a launch went round the recorded wrapper")
         errs, notes = [], []
         for c in got_calls:
             got = c["out"]
             if name == "packet_hit":
                 if c["cs"] is not cs:
-                    fail("an interior1440 packet call traced another cluster set")
+                    fail(f"a {label} packet call traced another cluster set")
                 o, d, tm = c["origin"], c["direction"], c["t_max"]
                 if c["any_hit"]:
                     ref = cluster.any_hit_clustered(cs, o, d, tm)
@@ -686,16 +691,326 @@ def check_frame_calls(calls: dict, launches: dict, cs, scene, card: str) -> dict
                              f"{0 if wide is None else int((wide > 0.5).sum())}")
             errs.append(err)
             if not ok:
-                fail(f"the {name} kernel disagrees with its plain version on the interior1440 "
+                fail(f"the {name} kernel disagrees with its plain version on the {label} "
                      f"frame's own inputs ({notes[-1]})")
         frame_err[name] = max(errs)
         same = {}
         for note in notes:
             same[note] = same.get(note, 0) + 1
-        print(f"[{name}] interior1440 frame's own inputs, {len(got_calls)} calls "
+        print(f"[{name}] {label} frame's own inputs, {len(got_calls)} calls "
               f"({'; '.join(f'{k} x{n}' for k, n in same.items())}): max|err| "
               f"{frame_err[name]:.3g} against the plain version ({card})")
     return frame_err
+
+
+OUTPUT_WARMUP = 2
+OUTPUT_FRAMES = 3
+OUTPUT_W, OUTPUT_H = 3840, 2160   # DLSS "Performance" at 4K renders at 1920x1080
+CHAIN_RES, CHAIN_OUT = 192, 384   # the card-against-CPU check of the output chain
+CHAIN_SHARC_CAPACITY = 1 << 18    # its SHARC table, cut from 2^22 to keep the CPU frames short
+HOLDOUT_RES = 96                  # tests/test_neural_rr.py's held-out kitchen view
+NET_TOL = 1e-5                    # the networks, card against CPU (float32 convolutions)
+CLI_RENDER = ["render", "--scene", "kitchen", "--size", "512", "--frames", "4", "--denoiser",
+              "relax", "--taa", "--upscale", "1024", "--sr", "neural", "--nis", "--separator",
+              "0.5"]
+
+
+def to_device(obj, dev):
+    """A copy of obj (tensors, dicts, tuples, dataclasses of them) on dev."""
+    import dataclasses
+
+    if torch.is_tensor(obj):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        return tuple(to_device(v, dev) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: to_device(getattr(obj, f.name), dev)
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def png_size(path: str) -> tuple[int, int]:
+    """(width, height) from a PNG's IHDR chunk; fails if the file is no PNG."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        fail(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24])
+
+
+def check_output_chain(dev, card: str, launches: dict, reset_counts, counters: dict) -> dict:
+    """The output chain (phase 5d): (a) kitchen1080 with the post chain to
+    3840x2160 (the learned SR network, NIS, the split screen at 0.5) and the
+    validation overlay, (b) kitchen1080 with the learned RR denoiser in
+    place of RELAX (TAA and SHARC kept): 2 warm-up and 3 timed frames each
+    (wall and device-busy ms, idle share, peak memory, launches, the post
+    chain's and the RR step's own device ms); every gather call of one (b)
+    frame against its plain version; the networks and the 192x192 -> 384x384
+    image phase card against CPU; the 96x96 held-out RR gate; every debug
+    view once at kitchen1080; the CLI's render at 512 -> 1024. Runs with
+    cuDNN's TF32 allowed (PyTorch's default), so the networks' own float32
+    scope is what holds them to the CPU. Returns the summary numbers."""
+    import dataclasses
+    import tempfile
+
+    from nrdsample_tpu_torch.config import Denoiser, OnScreen, RenderConfig, TracingMode
+    from nrdsample_tpu_torch.ops import reproject
+    from nrdsample_tpu_torch.pipeline import bench_configs, frame
+    from nrdsample_tpu_torch.post import final as final_mod, guides, neural_rr, neural_sr, nis
+    from nrdsample_tpu_torch.post import upscale
+    from nrdsample_tpu_torch.scene import procedural
+    from nrdsample_tpu_torch.scene.types import look_at
+    from nrdsample_tpu_torch.ops import traversal
+    from nrdsample_tpu_torch.config import make_settings
+
+    summary = {}
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    post_kw = dict(enable_post=True, output_width=OUTPUT_W, output_height=OUTPUT_H,
+                   use_neural_sr=True, use_nis=True, use_validation_overlay=True)
+    cases = {"a": ("kitchen1080 + post chain to 3840x2160", post_kw,
+                   ("dense_hit", "emissive_probe", "bilinear_sample", "relax_taccum",
+                    "relax_atrous", "taa_resolve")),
+             "b": ("kitchen1080 NEURAL", dict(denoiser=Denoiser.NEURAL),
+                   ("dense_hit", "emissive_probe", "bilinear_sample", "taa_resolve"))}
+
+    def separated(settings):
+        return dataclasses.replace(settings, separator=torch.tensor(0.5, device=settings.separator.device))
+
+    for key, (label, kw, needed) in cases.items():
+        ctx, scene, cam, cfg, settings = bench_configs.setup("kitchen1080", dev, **kw)
+        settings = separated(settings)
+        hist = frame.History.create(cfg, dev)
+        for _ in range(OUTPUT_WARMUP):
+            out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(OUTPUT_FRAMES):
+            out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / OUTPUT_FRAMES
+        counts = {k: m.LAUNCHES for k, m in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        if not all(counts[k] > 0 for k in needed):
+            fail(f"({key}) {label} did not launch all of {needed}: {counts}")
+        state = {}
+
+        def one_more():
+            state["out"], state["hist"] = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+
+        busy_ms, n_kernels = device_busy_ms(one_more)
+        per_frame = {k: n / OUTPUT_FRAMES for k, n in counts.items()}
+        line = (f"[output chain ({key})] {label}: {ms:.3f} ms/frame wall over {OUTPUT_FRAMES} "
+                f"frames after {OUTPUT_WARMUP} warm-up, device busy {busy_ms:.3f} ms in "
+                f"{n_kernels} kernels (one more frame under torch.profiler), idle share "
+                f"{1.0 - busy_ms / ms:.3f}, peak memory {peak} B, launches/frame {per_frame}")
+        gb = out["gbuffer"]
+        for k in ("color", "final"):
+            if not bool(torch.isfinite(out[k]).all()) or not float(out[k].mean()) > 0.0:
+                fail(f"({key}) {label}: {k} is not finite with a positive mean")
+        if key == "a":
+            disp = out["display"]
+            if (tuple(disp.shape) != (OUTPUT_H, OUTPUT_W, 3) or not bool(torch.isfinite(disp).all())
+                    or float(disp.min()) < 0.0 or float(disp.max()) > 1.0):
+                fail(f"(a) display {tuple(disp.shape)} is not a finite [0, 1] image at "
+                     f"{OUTPUT_W}x{OUTPUT_H}")
+            # the post chain alone, on the last frame's inputs (the TAA output
+            # before the validation overlay is the new TAA history)
+            taa_out = hist.taa.color.reshape(-1, 3)
+            frame_idx = hist.frame_index - 1
+
+            def chain():
+                return frame.post_chain(cfg, settings, gb, out["color"], taa_out, frame_idx,
+                                        taa_on=True)
+
+            again = float((chain() - disp).abs().max())
+            if not again <= NET_TOL:
+                fail(f"(a) post_chain on the frame's own inputs differs from the frame's display "
+                     f"by {again:.3g}")
+            h, w = cfg.height, cfg.width
+            tm = taa_out.reshape(h, w, 3)
+            sr_g = {"normal": gb["normal"].reshape(h, w, 3),
+                    "roughness": gb["roughness"].reshape(h, w),
+                    "depth": guides.hw_depth(gb["view_z"], 0.01).reshape(h, w)}
+            params = neural_sr.load_weights(device=dev)
+            up = upscale.lanczos_resize(tm, OUTPUT_H, OUTPUT_W)
+            parts = {"post_chain": chain,
+                     "lanczos 3 ch": lambda: upscale.lanczos_resize(tm, OUTPUT_H, OUTPUT_W),
+                     "neural_sr.apply": lambda: neural_sr.apply(params, tm, sr_g, OUTPUT_H,
+                                                                OUTPUT_W),
+                     "nis.sharpen": lambda: nis.sharpen(up, settings.sharpness),
+                     "final_pass": lambda: final_mod.final_pass(up, noisy=up,
+                                                                separator=settings.separator,
+                                                                frame_index=frame_idx)}
+            times = {}
+            for name, fn in parts.items():
+                ev = median_ms(fn, reps=5)
+                busy, nk = device_busy_ms(fn)
+                times[name] = (ev, busy, nk)
+            summary["post"] = times
+            line += ("; " + ", ".join(f"{n} {t[0]:.3f} ms (busy {t[1]:.3f} in {t[2]} kernels)"
+                                      for n, t in times.items()))
+        else:
+            if int(hist.neural_rr.valid) != 1 or out["display"] is not None:
+                fail("(b) the RR history is not valid after the frames")
+            h, w = cfg.height, cfg.width
+            rg = guides.rr_guides(gb, near=0.01, mv_type=settings.mv_type)
+            rr_g = {k: rg[k].reshape((h, w) + rg[k].shape[1:])
+                    for k in ("diff_albedo", "spec_albedo", "normal_roughness", "depth")}
+            params = neural_rr.load_weights(device=dev)
+            noisy_img = out["color"].reshape(h, w, 3)
+            mv = gb["mv"].reshape(h, w, 3)[..., :2]
+
+            def rr_step():
+                return neural_rr.denoise(params, noisy_img, rr_g, mv, hist.neural_rr)[0]
+
+            ev = median_ms(rr_step, reps=5)
+            busy, nk = device_busy_ms(rr_step)
+            summary["rr"] = (ev, busy, nk)
+            line += f"; neural_rr.denoise {ev:.3f} ms (busy {busy:.3f} in {nk} kernels)"
+            # every gather call of one more frame against its plain version
+            with recording({"bilinear_sample": (reproject, "sample_bilinear_cuda", keep_planes),
+                            "taa_resolve": (counters["taa_resolve"], "taa_resolve_cuda",
+                                            keep_planes)}) as calls:
+                before = {k: m.LAUNCHES for k, m in counters.items()}
+                frame.render_frame(ctx, scene, cam, cfg, settings, state["hist"])
+                rec = {k: m.LAUNCHES - before[k] for k, m in counters.items()}
+            torch.cuda.synchronize()
+            summary["rr_calls"] = check_frame_calls(calls, rec, None, scene, card,
+                                                    label="kitchen1080 NEURAL")
+            del calls
+        summary[key] = (ms, busy_ms, 1.0 - busy_ms / ms, peak, per_frame)
+        print(line + f" ({card})")
+        del out, hist, state, gb, ctx, scene
+        torch.cuda.empty_cache()
+
+    # the networks card against CPU on seeded inputs, TF32 allowed globally
+    rs = np.random.RandomState(5)
+    f32 = lambda *shape: torch.from_numpy(rs.rand(*shape).astype(np.float32))
+    sr_in = (f32(128, 160, 3), {"normal": f32(128, 160, 3), "roughness": f32(128, 160),
+                                "depth": f32(128, 160)})
+    rr_in = (f32(128, 160, 3), {"diff_albedo": f32(128, 160, 3), "spec_albedo": f32(128, 160, 3),
+                                "normal_roughness": f32(128, 160, 4), "depth": f32(128, 160)},
+             f32(128, 160, 3))
+    errs = {}
+    for name, fn, args in (
+            ("neural_sr.apply", lambda d, c, g: neural_sr.apply(
+                neural_sr.load_weights(device=d), c, g, 256, 320), sr_in),
+            ("neural_rr.apply", lambda d, n, g, p: neural_rr.apply(
+                neural_rr.load_weights(device=d), n, g, p, 1), rr_in)):
+        ref = fn("cpu", *args)
+        got = fn(dev, *to_device(args, dev)).cpu()
+        err = float((got - ref).abs().max())
+        errs[name] = err
+        if not torch.allclose(got, ref, rtol=NET_TOL, atol=NET_TOL):
+            fail(f"{name} on the card differs from the CPU by {err:.3g} (TF32 in the convolutions?)")
+    print(f"[output chain] networks card against CPU with cudnn.allow_tf32 True: max|err| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (limit {NET_TOL})")
+
+    # the image phase at 192x192 -> 384x384 card against CPU, from the CPU's
+    # trace of the second frame and its history after the first; the whole
+    # frames are reported beside it
+    for label, kw in (("post chain", dict(post_kw, output_width=CHAIN_OUT,
+                                          output_height=CHAIN_OUT)),
+                      ("NEURAL", dict(denoiser=Denoiser.NEURAL))):
+        runs = {}
+        for where in ("cpu", dev):
+            ctx, scene, cam, cfg, settings = bench_configs.setup(
+                "kitchen1080", where, width=CHAIN_RES, height=CHAIN_RES,
+                sharc_capacity=CHAIN_SHARC_CAPACITY, **kw)
+            settings = separated(settings)
+            h0 = frame.History.create(cfg, where)
+            out0, h1 = frame.render_frame(ctx, scene, cam, cfg, settings, h0)
+            out1, h2 = frame.render_frame(ctx, scene, cam, cfg, settings, h1)
+            runs[where] = (ctx, scene, cam, cfg, settings, h1, out1)
+        ctx, scene, cam, cfg, settings, h1, whole_cpu = runs["cpu"]
+        gb, aux = frame.trace_frame(ctx, scene, cam, cfg, settings, h1)
+        img_cpu = frame.image_frame(cfg, settings, cam, h1, gb, aux)[0]
+        _, _, cam_d, _, settings_d, _, whole_card = runs[dev]
+        img_card = frame.image_frame(cfg, settings_d, cam_d, to_device(h1, dev),
+                                     to_device(gb, dev), to_device(aux, dev))[0]
+        planes = ("color", "final") + (("display",) if cfg.enable_post else ())
+        rows = []
+        for plane in planes:
+            for what, a, b in (("image phase", img_cpu, img_card), ("whole frame", whole_cpu,
+                                                                    whole_card)):
+                frac, rel = frame_mismatch(a[plane].reshape(-1, 3), b[plane].reshape(-1, 3))
+                rows.append((plane, what, frac, rel))
+                if what == "image phase" and (frac > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL):
+                    fail(f"the {label} image phase at {CHAIN_RES}x{CHAIN_RES} differs between the "
+                         f"card and the CPU on {plane}: outlier share {frac:.6f}, mean gap {rel:.3g}")
+        print(f"[output chain] {label} {CHAIN_RES}x{CHAIN_RES}"
+              + (f" -> {CHAIN_OUT}x{CHAIN_OUT}" if cfg.enable_post else "")
+              + " card against CPU (outlier share, mean gap; the image phase from the CPU's "
+              "trace of frame 1 is held to PERF.md §2, the whole frame reported): "
+              + ", ".join(f"{p} {w} {f:.6f}/{r:.3g}" for p, w, f, r in rows))
+        del runs, gb, aux, img_cpu, img_card, whole_cpu, whole_card
+
+    # tests/test_neural_rr.py's held-out gate on the card
+    target = np.load(os.path.join(REPO, "Tests", "golden", "neural_rr_holdout.npz"))["target"]
+    ctx, scene = traversal.build_context(procedural.kitchen(), device=dev)
+    cam = look_at([0.0, -1.6, 1.6], [0.0, 1.5, 1.2], fov_y_deg=65.0, device=dev)
+    settings = make_settings(dev, sun_elevation=45.0)
+    psnr = {}
+    for d in (Denoiser.NEURAL, Denoiser.RELAX):
+        cfg = RenderConfig(width=HOLDOUT_RES, height=HOLDOUT_RES, rpp=1, bounce_num=2,
+                           tracing_mode=TracingMode.FULL_PROBABILISTIC, denoiser=d)
+        hist = frame.History.create(cfg, dev)
+        for _ in range(2):
+            out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        img = np.clip(out["color"].cpu().numpy().reshape(HOLDOUT_RES, HOLDOUT_RES, 3), 0, 4)
+        psnr[d.name] = float(-10 * np.log10(np.mean((img - np.clip(target, 0, 4)) ** 2) + 1e-12))
+    print(f"[output chain] held-out kitchen {HOLDOUT_RES}x{HOLDOUT_RES}, 2 frames: PSNR NEURAL "
+          f"{psnr['NEURAL']:.3f} dB, RELAX {psnr['RELAX']:.3f} dB")
+    if not psnr["NEURAL"] > psnr["RELAX"]:
+        fail("the learned RR denoiser does not beat RELAX on the held-out view on the card")
+    summary["holdout"] = psnr
+
+    # every debug view once at kitchen1080, one history carried through them
+    ctx, scene, cam, cfg, settings = bench_configs.setup("kitchen1080", dev)
+    hist = frame.History.create(cfg, dev)
+    means = {}
+    for view in OnScreen:
+        out, hist = frame.render_frame(ctx, scene, cam, dataclasses.replace(cfg, on_screen=view),
+                                       settings, hist)
+        dbg = out["debug"]
+        if view == OnScreen.FINAL:
+            if dbg is not None:
+                fail("the FINAL view has a debug image")
+            continue
+        if tuple(dbg.shape) != (cfg.n_pixels, 3) or not bool(torch.isfinite(dbg).all()):
+            fail(f"the {view.name} debug view is not a finite (N, 3) image")
+        means[view.name] = float(dbg.mean())
+    print(f"[output chain] debug views at kitchen1080, mean of each: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in means.items()))
+    del ctx, scene, hist, out
+    torch.cuda.empty_cache()
+
+    # the port's CLI as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "kitchen.png")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "nrdsample_tpu_torch.cli", *CLI_RENDER,
+                            "--out", png], cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        print(f"[output chain] python -m nrdsample_tpu_torch.cli {' '.join(CLI_RENDER)}: rc "
+              f"{r.returncode} in {wall:.1f} s; " + " | ".join(
+                  (r.stderr.strip().splitlines() or [""])[-2:] + r.stdout.strip().splitlines()))
+        if r.returncode != 0 or not os.path.exists(png):
+            fail(f"the CLI render failed: {r.stderr[-2000:]}")
+        size = png_size(png)
+        if size != (1024, 1024):
+            fail(f"the CLI wrote a {size} PNG, not 1024x1024")
+    torch.backends.cudnn.allow_tf32 = tf32_before
+    return summary
 
 
 def main() -> int:
@@ -1419,6 +1734,20 @@ def main() -> int:
     frame_err = check_frame_calls(calls, recorded_launches, cs, scene, card)
     del calls
     del out, hist, ctx, scene, cs
+    torch.cuda.empty_cache()
+
+    # ---- 5d. the output chain: kitchen1080 with the post chain to 4K and the
+    # validation overlay, and with the learned RR denoiser; the networks and
+    # the image phase card against CPU, the held-out RR gate, every debug
+    # view, the CLI ----
+    chain_counters = {"dense_hit": dense_cuda, "emissive_probe": emissive_probe,
+                      "bilinear_sample": reproject, "relax_taccum": taccum_cuda,
+                      "relax_atrous": atrous_cuda, "taa_resolve": taa_cuda}
+    t0 = time.perf_counter()
+    chain = check_output_chain(dev, card, launches, reset_counts, chain_counters)
+    for k, e in chain["rr_calls"].items():
+        frame_err[k] = max(frame_err.get(k, 0.0), e)
+    print(f"[output chain] phase in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. card against CPU, end to end; the cornellbox-000 golden ----
     res = 64
@@ -1720,6 +2049,13 @@ def main() -> int:
             k["max_abs_err"] = max(k["max_abs_err"], frame_err[k["name"]])
     print(f"[interior1440 summary] {interior[0]:.3f} ms/frame wall, {interior[1]:.3f} ms device "
           f"busy, peak memory {interior[2]} B, launches/frame {interior[3]} ({card})")
+    a, b, post = chain["a"], chain["b"], chain["post"]
+    print(f"[output chain summary] (a) kitchen1080 + post chain to {OUTPUT_W}x{OUTPUT_H}: "
+          f"{a[0]:.3f} ms/frame wall, {a[1]:.3f} ms busy, idle {a[2]:.3f}, peak {a[3]} B, "
+          f"post_chain {post['post_chain'][0]:.3f} ms (busy {post['post_chain'][1]:.3f}); "
+          f"(b) kitchen1080 NEURAL: {b[0]:.3f} ms/frame wall, {b[1]:.3f} ms busy, idle "
+          f"{b[2]:.3f}, peak {b[3]} B, neural_rr.denoise {chain['rr'][0]:.3f} ms (busy "
+          f"{chain['rr'][1]:.3f}); launches/frame (a) {a[4]} (b) {b[4]} ({card})")
     print(f"[exterior720 summary] {exterior[0]:.3f} ms/frame, launches/frame {exterior[1]}; "
           f"streaming kernel vs the parent's build vs resident kernel ms on the same "
           f"worklists: "

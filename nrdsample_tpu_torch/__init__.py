@@ -6,12 +6,14 @@ the same relative path under ``nrdsample_tpu/``. Plain tensor code is PyTorch
 hand-written CUDA C++ kernel for Hopper (``csrc/``), built with ``nvcc`` at
 first use and bound through ``ctypes``.
 
-Ported so far: ``pipeline.frame.render_frame`` end to end for scenes in
-dense mode (<= 1024 triangles, brute-force hits) and in cluster mode (up to
-2048 clusters of 128 triangles, the packet kernel), with the REFERENCE
-accumulator or REBLUR + SIGMA. Entry points put their tensors on the CUDA
-card unless the caller passes ``device="cpu"``. Branches of later slices
-raise ``NotImplementedError``.
+Ported so far: every branch of ``pipeline.frame.render_frame`` (every
+denoiser, the radiance caches, TAA, the output-resolution chain with the
+learned SR and RR networks, the debug views), for scenes in dense mode
+(<= 1024 triangles) and cluster mode, with glass, and the ``render`` and
+``scenes`` commands of ``python -m nrdsample_tpu_torch.cli``. Entry points
+put their tensors on the CUDA card unless the caller passes
+``device="cpu"``. Scene features of later slices (textures, alpha test,
+instances) raise ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

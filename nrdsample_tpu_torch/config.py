@@ -117,8 +117,7 @@ GEOMETRY_ALL = FLAG_NON_TRANSPARENT | FLAG_TRANSPARENT
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render configuration (same fields and defaults as the JAX
-    package's). Values of features this port does not have yet are accepted
-    here and rejected with ``NotImplementedError`` when a frame runs."""
+    package's)."""
 
     width: int = 256
     height: int = 256

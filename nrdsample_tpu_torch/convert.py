@@ -1,10 +1,10 @@
 """Carry parameters and state across from the JAX package.
 
 Each function takes dicts of numpy arrays — the leaves of the JAX package's
-``Scene``, ``Camera``, ``Settings`` and ``History`` (the caller does the
-jax -> numpy step, so this package never imports jax) — and returns the
-port's objects on ``device`` (the CUDA card when None). The values are
-copied bit for bit.
+``Scene``, ``Camera``, ``Settings`` and ``History``, or its network weights
+(the caller does the jax -> numpy step, so this package never imports jax) —
+and returns the port's objects on ``device`` (the CUDA card when None). The
+values are copied bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from nrdsample_tpu_torch.denoise.taa import TaaHistory
 from nrdsample_tpu_torch.device import resolve
 from nrdsample_tpu_torch.ops.sharc import SharcState
 from nrdsample_tpu_torch.pipeline.frame import History
+from nrdsample_tpu_torch.post.neural_rr import NeuralRRHistory
 from nrdsample_tpu_torch.render.l1cache import L1History
 from nrdsample_tpu_torch.scene.types import Camera, Materials, Scene, TriangleSoA
 
@@ -72,10 +73,30 @@ def settings_from_numpy(d: dict, device=None) -> Settings:
     return Settings(**{k: _t(v, "cpu") for k, v in d.items()}).to(resolve(device))
 
 
+def conv_params_from_numpy(d: dict, device=None) -> dict:
+    """d: {"w{i}": (3, 3, C_in, C_out) HWIO kernel, "b{i}": (C_out,) bias}, a
+    network of the JAX package (``post/neural_sr.npz``, ``neural_rr.npz``).
+    Returns the same keys with each kernel as an OIHW tensor (contiguous),
+    the layout ``torch.nn.functional.conv2d`` takes, and each bias as it
+    is."""
+    device = resolve(device)
+    out = {}
+    for k, v in d.items():
+        t = _t(v, device)
+        if k.startswith("w"):
+            if t.dim() != 4:
+                raise ValueError(f"{k}: expected an HWIO kernel, got shape {tuple(t.shape)}")
+            t = t.permute(3, 2, 0, 1).contiguous()
+        elif not k.startswith("b"):
+            raise KeyError(f"unknown network parameter {k!r}")
+        out[k] = t
+    return out
+
+
 _SLOTS = {"reference": ReferenceHistory, "relax_diff": RelaxHistory, "relax_spec": RelaxHistory,
           "reblur_diff": ReblurHistory, "reblur_spec": ReblurHistory, "sigma": SigmaHistory,
           "taa": TaaHistory, "sharc": SharcState, "confidence": ConfidenceHistory,
-          "l1": L1History}
+          "l1": L1History, "neural_rr": NeuralRRHistory}
 
 
 def history_from_numpy(d: dict, device=None) -> History:
@@ -84,8 +105,8 @@ def history_from_numpy(d: dict, device=None) -> History:
     "relax_spec" (illum, moments, view_z, normal, frames), "reblur_diff" and
     "reblur_spec" (illum, fast_illum, hitdist, view_z, normal, frames),
     "sigma" (shadow, frames, view_z), "taa" (color, valid), "sharc" (keys
-    uint32, accum, resolved, last_seen), "confidence" (probe_lum, view_z) and
-    "l1" (packed, valid).
+    uint32, accum, resolved, last_seen), "confidence" (probe_lum, view_z),
+    "l1" (packed, valid) and "neural_rr" (color, valid).
     SHARC's uint32 keys become the port's int64 keys of the same value."""
     device = resolve(device)
     slots = {}

@@ -7,7 +7,8 @@ the mix rate.
 The resolve after the gather is one kernel on the card,
 ``csrc/taa_resolve.cu``; ``resolve_tail`` is its plain version, which CPU
 tensors take. The bicubic gather goes through the bilinear gather kernel
-(five launches). The TAA-weight debug view comes with the debug views.
+(five launches), as does that of ``debug_weight``, the TAA-weight debug
+view.
 """
 
 from __future__ import annotations
@@ -107,6 +108,33 @@ def resolve(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale: float, base_mix:
     if cur.device.type == "cpu":
         return resolve_tail(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale, base_mix)
     raise ValueError(f"no TAA resolve for device {cur.device}")
+
+
+def debug_weight(hist: TaaHistory, cur, mv, view_z, wide_mask=None, base_mix: float = 0.1):
+    """(H, W) effective TAA mix rate, the USE_TAA_DEBUG plane
+    (Final.cs.hlsl:54-56): the resolve's mix factor recomputed from the same
+    inputs, 1 where the history is not valid yet."""
+    h, w = view_z.shape
+    mv_d = closest_velocity_dilation(mv[..., :2], view_z)
+    prev = common.reproject(hist.color, mv_d, bicubic=True)
+    mu = torch.zeros_like(cur)
+    mu2 = torch.zeros_like(cur)
+    for dy, dx in common.stencil_taps(1):
+        cn = common.shifted(cur, dy, dx)
+        mu = mu + cn
+        mu2 = mu2 + cn * cn
+    mu = mu / 9.0
+    sigma = torch.sqrt(torch.clamp_min(mu2 / 9.0 - mu * mu, 0.0) + 1e-12)
+    clamped = torch.minimum(torch.maximum(prev, mu - sigma * cfgmod.TAA_SIGMA_SCALE),
+                            mu + sigma * cfgmod.TAA_SIGMA_SCALE)
+    d = (color.rgb_to_lab(torch.clamp(prev, 0.0, 1.0))
+         - color.rgb_to_lab(torch.clamp(clamped, 0.0, 1.0)))
+    de = torch.sqrt(torch.sum(d * d, dim=-1))
+    mix = torch.clamp(base_mix + torch.clamp(de / 23.0, 0.0, 1.0) * 0.5, 0.0, 1.0)
+    mix = torch.where(common.in_screen(mv_d, h, w), mix, 1.0)
+    if wide_mask is not None:
+        mix = torch.maximum(mix, wide_mask.to(mix.dtype) * base_mix)
+    return torch.where(hist.valid == 0, 1.0, mix)
 
 
 def apply(hist: TaaHistory, cur, mv, view_z, wide_mask=None, reset=False, base_mix: float = 0.1):

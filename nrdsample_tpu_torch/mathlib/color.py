@@ -1,5 +1,6 @@
-"""Color helpers — ml.hlsli ``Color::*`` equivalents, sRGB, the inverse
-tonemap of the confidence mapping, and CIELAB for the TAA mix boost.
+"""Color helpers — ml.hlsli ``Color::*`` equivalents, sRGB, the Uncharted 2
+tonemap, the inverse tonemap of the confidence mapping, and CIELAB for the
+TAA mix boost.
 
 Products are written per component, and a division by a constant as a
 multiplication by its reciprocal, so the CPU, PyTorch's CUDA ops and the
@@ -22,10 +23,36 @@ def from_gamma(c, gamma: float = 2.2):
     return torch.pow(torch.clamp(c, 0.0, 1.0), gamma)
 
 
+def to_gamma(c, gamma: float = 2.2):
+    return torch.pow(torch.clamp(c, 0.0, 1.0), 1.0 / gamma)
+
+
 def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
     c = torch.clamp(c, 0.0, 1.0)
     c_safe = torch.clamp_min(c, 0.0031308)
     return torch.where(c <= 0.0031308, 12.92 * c, 1.055 * torch.pow(c_safe, 1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
+    c = torch.clamp(c, 0.0, 1.0)
+    return torch.where(c <= 0.04045, c * (1.0 / 12.92), torch.pow((c + 0.055) * (1.0 / 1.055), 2.4))
+
+
+# Uncharted 2 filmic tonemap (Color::HdrToLinear_Uncharted, used in
+# ApplyTonemap Shared.hlsli:337 and DlssAfter.cs.hlsl:7-22)
+_UA, _UB, _UC, _UD, _UE, _UF, _UW = 0.15, 0.50, 0.10, 0.20, 0.02, 0.30, 11.2
+
+
+def _uncharted_curve(x):
+    return ((x * (_UA * x + _UC * _UB) + _UD * _UE) / (x * (_UA * x + _UB) + _UD * _UF)) - _UE / _UF
+
+
+#: the curve at the white point, evaluated in float32
+_U_WHITE = float(_uncharted_curve(torch.tensor(_UW, dtype=torch.float32)))
+
+
+def tonemap_uncharted(c: torch.Tensor, exposure_bias: float = 2.0) -> torch.Tensor:
+    return _uncharted_curve(c * exposure_bias) * (1.0 / _U_WHITE)
 
 
 def inverse_tonemap_lum(y):

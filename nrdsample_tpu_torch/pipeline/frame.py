@@ -3,10 +3,12 @@
 ``image_frame`` (the denoisers, then composition), threading an explicit
 ``History``. Eager PyTorch: each call runs on the device of its tensors.
 
-Three denoiser paths are ported: REFERENCE accumulation, and REBLUR or RELAX
-with SIGMA for the sun shadow; with them the SHARC radiance cache and its
-history-confidence plane, the L1 cache, the SH resolve, the OCCLUSION and
-DIRECTIONAL_OCCLUSION modes, HALF (checkerboard) tracing and TAA. The trace
+Every denoiser path is ported: REFERENCE accumulation, REBLUR or RELAX with
+SIGMA for the sun shadow, and the learned recurrent denoiser of the RR slot
+(NEURAL); with them the SHARC radiance cache and its history-confidence
+plane, the L1 cache, the SH resolve, the OCCLUSION and DIRECTIONAL_OCCLUSION
+modes, HALF (checkerboard) tracing, TAA, the output-resolution chain (the SR
+slot, NIS, the Final pass), the debug views and the validation overlay. The trace
 runs the SHARC update pass before the opaque trace (with the PSR walk and
 the L1 cache), then the stress tests and sanitization; with glass (a
 ``SceneContexts`` with a transparent context) it then marches the
@@ -15,8 +17,9 @@ The image work runs as ``image_frame_begin`` (history confidence,
 hit-distance reconstruction or the checkerboard resolve, SIGMA, the
 occlusion planes, RELAX, REBLUR temporal accumulation) then
 ``image_frame_finish`` (REBLUR blur and stabilization, SH resolve and
-composition, the glass overlay, REFERENCE, TAA, the L1 history, history
-assembly), with every history gather inline.
+composition, the glass overlay, the RR slot, REFERENCE, TAA, ``post_chain``,
+the debug view, the validation overlay, the L1 history, history assembly),
+with every history gather inline.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from nrdsample_tpu_torch.denoise import (checkerboard, common, composition, conf
 from nrdsample_tpu_torch.device import resolve
 from nrdsample_tpu_torch.mathlib import color, geometry as geo
 from nrdsample_tpu_torch.ops import sharc, traversal
+from nrdsample_tpu_torch.post import final as final_mod, guides, neural_rr, neural_sr, nis, upscale
 from nrdsample_tpu_torch.render import l1cache, sharc_update, stress, trace_opaque, trace_transparent
 from nrdsample_tpu_torch.scene import camera as cam_mod
 from nrdsample_tpu_torch.scene.types import Camera, Scene
@@ -41,8 +45,7 @@ from nrdsample_tpu_torch.scene.types import Camera, Scene
 @dataclasses.dataclass
 class History:
     """Cross-frame state: the frame index and the slots of the configured
-    denoiser, radiance caches and TAA (unused slots are None; the NEURAL
-    slot arrives with its slice)."""
+    denoiser, radiance caches and TAA (unused slots are None)."""
 
     frame_index: torch.Tensor   # () int32
     reference: Any = None       # reference.ReferenceHistory
@@ -55,12 +58,12 @@ class History:
     sharc: Any = None           # sharc.SharcState (the L2 radiance cache)
     l1: Any = None              # l1cache.L1History (the previous frame's irradiance)
     confidence: Any = None      # confidence.ConfidenceHistory (probe luminance)
+    neural_rr: Any = None       # neural_rr.NeuralRRHistory (the RR slot)
 
     @staticmethod
     def create(cfg: RenderConfig, device=None) -> "History":
         """The empty history of ``cfg`` on ``device`` (the CUDA card when
         None)."""
-        trace_opaque.check_config_supported(cfg)
         device = resolve(device)
         h, w, dt = cfg.height, cfg.width, cfg.dtype
         kw: dict[str, Any] = {"frame_index": torch.tensor(0, dtype=torch.int32, device=device)}
@@ -82,6 +85,8 @@ class History:
             kw["reblur_diff"] = reblur.ReblurHistory.create(h, w, dt, device)
             kw["reblur_spec"] = reblur.ReblurHistory.create(h, w, dt, device)
             kw["sigma"] = sigma.SigmaHistory.create(h, w, dt, device)
+        elif cfg.denoiser == Denoiser.NEURAL:
+            kw["neural_rr"] = neural_rr.NeuralRRHistory.create(h, w, dt, device)
         if cfg.use_taa:
             kw["taa"] = taa.TaaHistory.create(h, w, dt, device)
         return History(**kw)
@@ -319,8 +324,10 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
                        history: History, gb: dict, aux: dict, mid: dict,
                        reset_history=False):
     """Phase 2b — REBLUR blur and stabilization, the SH resolve and
-    composition, REFERENCE accumulation, TAA and the new history. ``gb`` has
-    mid["gb_updates"] merged in. Returns (outputs, new history)."""
+    composition, the glass overlay, the RR slot, REFERENCE accumulation,
+    TAA, the output-resolution chain, the debug view, the validation
+    overlay and the new history. ``gb`` has mid["gb_updates"] merged in.
+    Returns (outputs, new history)."""
     frame = history.frame_index
     diff, spec, shadow = mid["diff"], mid["spec"], mid["shadow"]
     new_h = dict(mid["new_h"])
@@ -363,6 +370,15 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
     glass_mask = gb.get("glass_mask")
     if glass_mask is not None:
         composed = torch.where(glass_mask[..., None], gb["glass_color"], composed)
+    if cfg.denoiser == Denoiser.NEURAL and history.neural_rr is not None:
+        # the RR slot: the learned recurrent denoiser on the noisy composed
+        # image and the guide buffers
+        rg = guides.rr_guides(gb, near=0.01, mv_type=settings.mv_type)
+        rr_g = {k: img(rg[k]) for k in ("diff_albedo", "spec_albedo", "normal_roughness", "depth")}
+        den_img, new_h["neural_rr"] = neural_rr.denoise(
+            neural_rr.load_weights(device=composed.device), img(composed), rr_g,
+            img(gb["mv"])[..., :2], history.neural_rr, reset=reset_history)
+        composed = flat(den_img)
     if cfg.denoiser == Denoiser.REFERENCE and history.reference is not None:
         composed, new_h["reference"] = reference.accumulate(history.reference, composed,
                                                             reset=reset_history)
@@ -378,6 +394,30 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
             history.taa, img(composed * settings.exposure * 1e-2), img(gb["mv"]),
             img(gb["view_z"]), wide_mask=img(taa_wide_mask), reset=reset_history)
         final = flat(taa_out)
+
+    display = None
+    if cfg.enable_post:
+        display = post_chain(cfg, settings, gb, composed, final, frame,
+                             taa_on=cfg.use_taa and history.taa is not None)
+
+    debug = None
+    if cfg.on_screen != cfgmod.OnScreen.FINAL:
+        taa_w = None
+        if cfg.on_screen == cfgmod.OnScreen.TAA_WEIGHT and history.taa is not None:
+            taa_w = flat(taa.debug_weight(history.taa, img(composed * settings.exposure * 1e-2),
+                                          img(gb["mv"]), img(gb["view_z"])))
+        debug = composition.debug_view(cfg.on_screen, gb, composed, sharc_state=aux.get("sharc"),
+                                       cam_pos=cam.position, taa_weight=taa_w)
+
+    if cfg.use_validation_overlay:
+        # the accumulation-age heatmap of the diffuse denoiser's history
+        frames_plane = None
+        for k in ("relax_diff", "reblur_diff"):
+            if new_h.get(k) is not None:
+                frames_plane = new_h[k].frames
+        if frames_plane is not None:
+            final = composition.validation_overlay(final, flat(frames_plane), _max_acc(settings))
+
     if cfg.use_sharc:
         new_h["sharc"] = aux["sharc"]
     if cfg.use_l1_cache:
@@ -390,8 +430,8 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
     outputs = {
         "color": composed,
         "final": final,
-        "display": None,
-        "debug": None,
+        "display": display,
+        "debug": debug,
         "view_z": gb["view_z"],
         "normal": gb["normal"],
         "shadow": shadow,
@@ -404,19 +444,54 @@ def image_frame_finish(cfg: RenderConfig, settings: Settings, cam: Camera,
     return outputs, History(**new_h)
 
 
+def post_chain(cfg: RenderConfig, settings: Settings, gb: dict, composed: torch.Tensor,
+               final: torch.Tensor, frame, taa_on: bool) -> torch.Tensor:
+    """The output-resolution chain: the SR slot (the learned residual
+    network over the Lanczos-2 resize with ``use_neural_sr``, else the
+    resize alone), NIS sharpening with ``use_nis``, then the Final pass with
+    the split screen, whose noisy side is the un-denoised signals
+    recomposed, tonemapped and resized. ``final`` is the TAA output
+    (tonemap range already) when ``taa_on``, else ``composed`` is
+    tonemapped. Returns the (out_h, out_w, 3) display image in [0, 1]."""
+    n_local = gb["view_z"].shape[0]
+    w = cfg.width
+    h_local = n_local // w
+
+    def img(a):
+        return a.reshape((h_local, w) + a.shape[1:])
+
+    out_h = cfg.output_height or h_local
+    out_w = cfg.output_width or w
+    exp = settings.exposure * 1e-2
+    tm = img(final) if taa_on else final_mod.tonemap_output(img(composed), exp)
+    if cfg.use_neural_sr:
+        sr_guides = {"normal": img(gb["normal"]), "roughness": img(gb["roughness"]),
+                     "depth": img(guides.hw_depth(gb["view_z"], 0.01))}
+        tm = neural_sr.apply(neural_sr.load_weights(device=tm.device), tm, sr_guides, out_h, out_w)
+    else:
+        tm = upscale.lanczos_resize(tm, out_h, out_w)
+    if cfg.use_nis:
+        tm = nis.sharpen(tm, settings.sharpness)
+    noisy = composition.compose(gb, gb["diff_radiance"], gb["spec_radiance"], gb["shadow"])
+    noisy_up = upscale.lanczos_resize(final_mod.tonemap_output(img(noisy), exp), out_h, out_w)
+    return final_mod.final_pass(tm, noisy=noisy_up, separator=settings.separator,
+                                frame_index=frame)
+
+
 def image_frame(cfg: RenderConfig, settings: Settings, cam: Camera,
                 history: History, gb: dict, aux: dict, reset_history=False):
     """Phase 2 — image_frame_begin then image_frame_finish. Returns
     (outputs, new history); outputs["color"] is the composed HDR radiance
     (N, 3), accumulated under REFERENCE; outputs["final"] is the TAA output
-    where TAA is on."""
-    trace_opaque.check_config_supported(cfg)
-    ported = {Denoiser.REFERENCE: history.reference, Denoiser.REBLUR: history.reblur_diff,
-              Denoiser.RELAX: history.relax_diff}
-    if ported.get(cfg.denoiser) is None:
-        raise NotImplementedError(
-            f"denoiser {cfg.denoiser.name} with this History: REFERENCE, REBLUR and RELAX are "
-            "ported, each with the History of its own RenderConfig")
+    where TAA is on (with the validation overlay blended over it);
+    outputs["display"] is the post chain's (out_h, out_w, 3) image with
+    ``enable_post``, outputs["debug"] the (N, 3) debug view of
+    ``on_screen``."""
+    slots = {Denoiser.REFERENCE: history.reference, Denoiser.REBLUR: history.reblur_diff,
+             Denoiser.RELAX: history.relax_diff, Denoiser.NEURAL: history.neural_rr}
+    if slots.get(cfg.denoiser) is None:
+        raise ValueError(f"denoiser {cfg.denoiser.name} with a History that has no "
+                         f"{cfg.denoiser.name} slot: create it from the same RenderConfig")
     mid = image_frame_begin(cfg, settings, cam, history, gb, aux, reset_history)
     gb = dict(gb, **mid["gb_updates"])
     return image_frame_finish(cfg, settings, cam, history, gb, aux, mid, reset_history)

@@ -22,20 +22,6 @@ from nrdsample_tpu_torch.scene import camera as cam_mod
 from nrdsample_tpu_torch.scene.types import Camera, Scene
 
 
-def check_config_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for every RenderConfig branch the port does
-    not have yet, naming where it stands in ROADMAP Queue 1."""
-    later = {
-        "denoiser NEURAL (post/neural_rr.py, off the frame path)": cfg.denoiser == Denoiser.NEURAL,
-        "enable_post (post chain, off the frame path)": cfg.enable_post,
-        "on_screen != FINAL (debug views, a later slice)": cfg.on_screen != cfgmod.OnScreen.FINAL,
-        "use_validation_overlay (a later slice)": cfg.use_validation_overlay,
-    }
-    missing = [name for name, on in later.items() if on]
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-
-
 def _shadow_rnd(cfg: RenderConfig, pixel_idx, frame, dim: int):
     """USE_BLUE_NOISE_FOR_SHADOWS: the blue-noise disc sample of the sun-shadow
     cone under the temporal denoisers; None (the white PCG stream) under
@@ -482,7 +468,6 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
     replaces mirror pixels' G-buffer by the virtual surface: view-z and
     motion at the virtual point, the normal unfolded through the transposed
     mirror matrix."""
-    check_config_supported(cfg)
     dev = scene.tris.p0.device
     if pixel_idx is None:
         pixel_idx = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)

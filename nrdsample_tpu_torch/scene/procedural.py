@@ -1,6 +1,7 @@
 """Procedural test scenes (counterpart of ``nrdsample_tpu/scene/procedural.py``):
 the Cornell box and its glass variant, the shader balls, the kitchen, the
-interior at night, the mirror room and the exterior street block, built with
+interior at night, the mirror room, the random triangle soup and the exterior
+street block, built with
 the same host numpy code (and the same ``RandomState`` draws) so the arrays
 equal the JAX builders' exactly."""
 
@@ -384,6 +385,32 @@ def mirror_room(box_emission: float = 0.0) -> Scene:
         (wall[0], wall[1], None, 2),   # diffuse back wall
     ]
     return _assemble(parts, materials, max_emissive=8)
+
+
+def random_soup(num_tris: int = 100_000, extent: float = 50.0, seed: int = 0) -> Scene:
+    """A perf scene of incoherent small triangles at Bistro-class counts
+    (the BistroInterior BLAS holds ~1M); it stresses the BVH's quality."""
+    rs = np.random.RandomState(seed)
+    centers = (rs.rand(num_tris, 3).astype(np.float32) - 0.5) * extent
+    centers[:, 2] = np.abs(centers[:, 2])
+    d1 = rs.randn(num_tris, 3).astype(np.float32) * 0.3
+    d2 = rs.randn(num_tris, 3).astype(np.float32) * 0.3
+    verts = np.concatenate([centers, centers + d1, centers + d2], axis=0).astype(np.float32)
+    idx = np.stack([np.arange(num_tris), np.arange(num_tris) + num_tris,
+                    np.arange(num_tris) + 2 * num_tris], axis=-1).astype(np.int32)
+    mat = rs.randint(0, 8, num_tris).astype(np.int32)
+    base_color = [[0.5 + 0.4 * rs.rand(), 0.5 * rs.rand(), 0.5 * rs.rand()] for _ in range(8)]
+    metalness = list(rs.rand(8) * 0.5)
+    roughness = list(0.2 + 0.8 * rs.rand(8))
+    tris = build_triangle_soa(verts, idx, None, None, mat)
+    f32 = lambda a: torch.tensor(np.array(a, np.float32))
+    mats = Materials(
+        base_color=f32(base_color), metalness=f32(metalness), roughness=f32(roughness),
+        emission=torch.zeros((8, 3), dtype=torch.float32),
+        ior=torch.full((8,), 1.5, dtype=torch.float32),
+        flags=torch.full((8,), config.FLAG_NON_TRANSPARENT, dtype=torch.int32),
+    )
+    return make_scene(tris, mats, max_emissive=1)
 
 
 def exterior(blocks: int = 4, window_grid: int = 6, cobbles: int = 60,

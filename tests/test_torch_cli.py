@@ -1,0 +1,135 @@
+"""The port's ``render`` and ``scenes`` commands on the CPU, and what they
+need: ``render`` writes the PNG that ``utils.image.write_png`` makes of the
+same ``render_frame`` output (the tonemapped final image, the post chain's
+display image, a debug view); ``write_png``'s bytes and
+``tonemap_for_display`` equal the JAX package's for the same array; the
+scene list is the JAX CLI's, and the two scenes the port's CLI adds
+(``glass_shell.add_inner_glass_surfaces`` over ``cornell_box_glass``, a
+``random_soup``) equal the JAX builders' arrays."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from nrdsample_tpu import cli as jcli
+from nrdsample_tpu.scene import glass_shell as jglass, procedural as jproc
+from nrdsample_tpu.utils import image as jimage
+from nrdsample_tpu_torch import cli
+from nrdsample_tpu_torch.config import Denoiser, OnScreen, RenderConfig, TracingMode, make_settings
+from nrdsample_tpu_torch.ops import traversal
+from nrdsample_tpu_torch.pipeline import frame
+from nrdsample_tpu_torch.scene import glass_shell, procedural
+from nrdsample_tpu_torch.scene.types import TriangleSoA, look_at
+from nrdsample_tpu_torch.utils import image
+from torch_session_cache import share_cores_between_workers
+
+share_cores_between_workers()
+
+SIZE = 16
+#: extra ``render`` arguments, and the RenderConfig fields and Settings they set
+RENDERS = {
+    "final": ([], {}, {}),
+    "post": (["--denoiser", "relax", "--taa", "--upscale", "24", "--sr", "neural", "--nis",
+              "--separator", "0.5", "--validation"],
+             dict(denoiser=Denoiser.RELAX, use_taa=True, output_width=24, output_height=24,
+                  use_nis=True, use_neural_sr=True, enable_post=True,
+                  use_validation_overlay=True),
+             dict(separator=0.5)),
+    "debug_view": (["--on-screen", "normal"], dict(on_screen=OnScreen.NORMAL), {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RENDERS))
+def test_render_writes_the_frame(name, tmp_path, capsys):
+    args, cfg_kw, settings_kw = RENDERS[name]
+    path = tmp_path / "out.png"
+    assert cli.main(["render", "--cpu", "--scene", "cornellbox", "--size", str(SIZE),
+                     "--frames", "1", "--sun-elevation=-30", "--no-shadows",
+                     "--out", str(path)] + args) == 0
+    assert f"wrote {path}" in capsys.readouterr().out
+
+    ctx, scene = traversal.build_context(procedural.cornell_box(), device="cpu")
+    cam = look_at([0.0, -3.2, 1.0], [0.0, 0.0, 1.0], fov_y_deg=39.0, device="cpu")
+    cfg = RenderConfig(width=SIZE, height=SIZE, bounce_num=2,
+                       tracing_mode=TracingMode.FULL_PROBABILISTIC, **cfg_kw)
+    settings = make_settings("cpu", sun_azimuth=-147.0, sun_elevation=-30.0, disable_shadows=1,
+                             exposure=35.0, **settings_kw)
+    out, _ = frame.render_frame(ctx, scene, cam, cfg, settings, frame.History.create(cfg, "cpu"))
+    if name == "final":
+        img = image.tonemap_for_display(out["final"].numpy().reshape(SIZE, SIZE, 3), 0.35)
+    elif name == "post":
+        img = (out["display"].numpy() * 255.0 + 0.5).astype(np.uint8)
+        assert img.shape == (24, 24, 3)
+    else:
+        img = (np.clip(out["debug"].numpy().reshape(SIZE, SIZE, 3), 0.0, 1.0) * 255.0
+               + 0.5).astype(np.uint8)
+    want = tmp_path / "want.png"
+    image.write_png(str(want), img)
+    assert path.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32", "grey"])
+def test_write_png_bytes_equal_jax(dtype, tmp_path):
+    rs = np.random.RandomState(0)
+    img = rs.uniform(-0.2, 1.2, (9, 13, 3)).astype(np.float32)
+    if dtype == "uint8":
+        img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+    elif dtype == "grey":
+        img = img[..., 0]
+    image.write_png(str(tmp_path / "a.png"), img)
+    jimage.write_png(str(tmp_path / "b.png"), img)
+    a = (tmp_path / "a.png").read_bytes()
+    assert a == (tmp_path / "b.png").read_bytes() and a[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_tonemap_for_display_matches_jax():
+    hdr = np.random.RandomState(1).uniform(0.0, 30.0, (16, 16, 3)).astype(np.float32)
+    np.testing.assert_allclose(image.tonemap_for_display(hdr, 0.35),
+                               np.asarray(jimage.tonemap_for_display(hdr, 0.35)),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_scenes_lists_the_jax_scenes(capsys):
+    assert cli.main(["scenes"]) == 0
+    names = capsys.readouterr().out.split()
+    jcli._register_scenes()
+    assert names == list(jcli.SCENES) == list(cli.DEFAULT_CAMERAS)
+    assert cli.DEFAULT_CAMERAS == jcli.DEFAULT_CAMERAS
+
+
+def _tri_arrays(tris):
+    return {f.name: np.asarray(getattr(tris, f.name)) for f in dataclasses.fields(TriangleSoA)}
+
+
+@pytest.mark.parametrize("name", ["cornellbox-glass", "soup"])
+def test_cli_scenes_equal_jax(name):
+    if name == "soup":
+        want, got = jproc.random_soup(500, seed=3), procedural.random_soup(500, seed=3)
+    else:
+        want = jglass.add_inner_glass_surfaces(jproc.cornell_box_glass())
+        got = glass_shell.add_inner_glass_surfaces(procedural.cornell_box_glass())
+        assert got.num_tris > procedural.cornell_box_glass().num_tris
+    w, g = _tri_arrays(want.tris), _tri_arrays(got.tris)
+    for k in w:
+        assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+    for f in dataclasses.fields(got.materials):
+        assert np.array_equal(np.asarray(getattr(got.materials, f.name)),
+                              np.asarray(getattr(want.materials, f.name))), f.name
+    assert np.array_equal(got.emissive_tris.numpy(), np.asarray(want.emissive_tris))
+    assert int(got.emissive_count) == int(want.emissive_count)
+
+
+def test_glass_shell_leaves_opaque_scenes():
+    scene = procedural.cornell_box()
+    assert glass_shell.add_inner_glass_surfaces(scene) is scene
+
+
+def test_render_without_a_card_names_cuda(monkeypatch, tmp_path):
+    """Without --cpu the command runs on the card, and without one it fails
+    naming CUDA rather than rendering on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["render", "--size", "8", "--frames", "1", "--out", str(tmp_path / "x.png")])
+    assert not (tmp_path / "x.png").exists()

@@ -1,5 +1,6 @@
-"""The port's whole frame against the JAX package's, its golden gate, the
-branches left for later slices, and its independence from JAX.
+"""The port's whole frame against the JAX package's, its golden gate, every
+RenderConfig branch of the frame, the scene features left for later slices,
+and its independence from JAX.
 
 Two REFERENCE frames of the Cornell box at 32x32 go through both
 render_frame functions from the same scene, camera and settings. Discrete
@@ -27,6 +28,7 @@ from nrdsample_tpu.scene import procedural as jproc
 from nrdsample_tpu.scene.types import look_at as jlook_at
 from nrdsample_tpu_torch import config, convert
 from nrdsample_tpu_torch.config import Denoiser, NrdMode, OnScreen, RenderConfig, TracingMode
+from nrdsample_tpu_torch.denoise import composition
 from nrdsample_tpu_torch.ops import emissive_probe, intersect, traversal
 from nrdsample_tpu_torch.pipeline import frame, records
 from nrdsample_tpu_torch.render import emissive_is, stress
@@ -146,7 +148,7 @@ def test_cam_fov_and_blink_settings():
     assert not torch.allclose(out["view_z"], ref["view_z"])
 
 
-LATER_CONFIGS = {
+BRANCH_CONFIGS = {
     "reblur": dict(denoiser=Denoiser.REBLUR),
     "relax": dict(denoiser=Denoiser.RELAX),
     "neural": dict(denoiser=Denoiser.NEURAL),
@@ -158,7 +160,7 @@ LATER_CONFIGS = {
     "nrd_sh": dict(nrd_mode=NrdMode.SH),
     "post": dict(enable_post=True),
     "on_screen": dict(on_screen=OnScreen.BASE_COLOR),
-    "validation_overlay": dict(use_validation_overlay=True),
+    "validation_overlay": dict(use_validation_overlay=True, denoiser=Denoiser.RELAX),
     "inf_stress": dict(use_inf_stress_test=True),
     "drs_stress": dict(use_drs_stress_test=True),
     "firefly": dict(use_firefly_test=True),
@@ -170,57 +172,62 @@ LATER_CONFIGS = {
 }
 
 
-#: branches of LATER_CONFIGS that the port has since gained
-PORTED_CONFIGS = {"reblur", "relax", "sharc", "taa", "nrd_sh", "psr", "half", "l1_cache",
-                  "inf_stress", "drs_stress", "firefly", "material_id", "sanitization",
-                  "hair_sss", "nrd_occlusion", "nrd_directional_occlusion"}
-
-
-@pytest.mark.parametrize("name", sorted(LATER_CONFIGS))
-def test_later_config_branches_raise(name):
-    """A branch of a later slice raises NotImplementedError from
-    History.create and from render_frame. REBLUR, RELAX, SHARC, TAA, the SH
-    resolve, the PSR walk, HALF tracing, the L1 cache, the four stress tests,
-    sanitization, hair/SSS and the two occlusion modes are ported now: their
-    8x8 frame of the Cornell box is finite (under the inf stress test, NaN
-    exactly where view-z is outside the denoising range) and their
-    histories advance."""
-    cfg = RenderConfig(width=8, height=8, sharc_capacity=1 << 10, **LATER_CONFIGS[name])
+@pytest.mark.parametrize("name", sorted(BRANCH_CONFIGS))
+def test_config_branches_render(name):
+    """Every RenderConfig branch renders: its 8x8 frame of the Cornell box is
+    finite (under the inf stress test, NaN exactly where view-z is outside
+    the denoising range) and its histories advance. The post chain's
+    display image has the output shape and lies in [0, 1], a debug view is
+    finite, the validation overlay blends the RELAX accumulation age over
+    the final image, and the RR slot's history is valid after a frame. A
+    History of another RenderConfig is refused."""
+    cfg = RenderConfig(width=8, height=8, sharc_capacity=1 << 10, **BRANCH_CONFIGS[name])
     ctx, scene = traversal.build_context(procedural.cornell_box(), device="cpu")
     cam = look_at([0, -3, 1], [0, 0, 1], device="cpu")
-    if name in PORTED_CONFIGS:
-        out, h = frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
-                                    frame.History.create(cfg, "cpu"))
-        far = out["view_z"].abs() > stress.DENOISING_RANGE if name == "inf_stress" else None
-        for plane in ("color", "final"):
-            if far is not None:
-                assert torch.equal(~torch.isfinite(out[plane]).all(-1), far)
-                assert float(out[plane][~far].mean()) > 0.0
-                continue
-            assert bool(torch.isfinite(out[plane]).all()) and float(out[plane].mean()) > 0.0
-        assert int(h.frame_index) == 1
-        if name == "l1_cache":
-            assert int(h.l1.valid) == 1 and h.l1.packed.shape == (8, 8, 7)
-        elif name == "material_id":
-            stripes = out["gbuffer"]["material_id"].reshape(8, 8)
-            assert bool((stripes == 0.0).all())   # rows 0-7: the first stripe
-        if name in ("reblur", "relax"):
-            # one frame accumulated (anti-lag may cut REBLUR's count below 1)
-            assert h.reference is None
-            assert float(h.sigma.frames.min()) == float(h.sigma.frames.max()) == 1.0
-            frames = getattr(h, f"{name}_diff").frames
-            assert 0.0 < float(frames.min()) and float(frames.max()) == 1.0
-        elif name == "sharc":
-            assert int((h.sharc.keys != 0).sum()) > 0
-        elif name == "taa":
-            assert int(h.taa.valid) == 1 and h.taa.color.shape == (8, 8, 3)
-        return
-    with pytest.raises(NotImplementedError):
-        frame.History.create(cfg, "cpu")
-    ok_cfg = RenderConfig(width=8, height=8)
-    with pytest.raises(NotImplementedError):
-        frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
-                           frame.History.create(ok_cfg, "cpu"))
+    out, h = frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
+                                frame.History.create(cfg, "cpu"))
+    far = out["view_z"].abs() > stress.DENOISING_RANGE if name == "inf_stress" else None
+    for plane in ("color", "final"):
+        if far is not None:
+            assert torch.equal(~torch.isfinite(out[plane]).all(-1), far)
+            assert float(out[plane][~far].mean()) > 0.0
+            continue
+        assert bool(torch.isfinite(out[plane]).all()) and float(out[plane].mean()) > 0.0
+    assert int(h.frame_index) == 1
+    assert (out["display"] is None) == (name != "post")
+    assert (out["debug"] is None) == (name != "on_screen")
+    if name == "l1_cache":
+        assert int(h.l1.valid) == 1 and h.l1.packed.shape == (8, 8, 7)
+    elif name == "material_id":
+        stripes = out["gbuffer"]["material_id"].reshape(8, 8)
+        assert bool((stripes == 0.0).all())   # rows 0-7: the first stripe
+    elif name == "post":
+        d = out["display"]
+        assert tuple(d.shape) == (8, 8, 3) and 0.0 <= float(d.min()) <= float(d.max()) <= 1.0
+    elif name == "on_screen":
+        assert tuple(out["debug"].shape) == (64, 3) and bool(torch.isfinite(out["debug"]).all())
+        assert torch.equal(out["debug"], out["gbuffer"]["base_color"])
+    elif name == "validation_overlay":
+        blended = composition.validation_overlay(out["color"], h.relax_diff.frames.reshape(-1),
+                                                 frame._max_acc(config.Settings()))
+        assert torch.equal(out["final"], blended) and not torch.equal(out["final"], out["color"])
+    elif name == "neural":
+        assert h.neural_rr.valid.dtype == torch.int32 and int(h.neural_rr.valid) == 1
+        assert torch.equal(h.neural_rr.color.reshape(-1, 3), out["color"])
+    if name in ("reblur", "relax"):
+        # one frame accumulated (anti-lag may cut REBLUR's count below 1)
+        assert h.reference is None
+        assert float(h.sigma.frames.min()) == float(h.sigma.frames.max()) == 1.0
+        frames = getattr(h, f"{name}_diff").frames
+        assert 0.0 < float(frames.min()) and float(frames.max()) == 1.0
+    elif name == "sharc":
+        assert int((h.sharc.keys != 0).sum()) > 0
+    elif name == "taa":
+        assert int(h.taa.valid) == 1 and h.taa.color.shape == (8, 8, 3)
+    if cfg.denoiser != Denoiser.REFERENCE:
+        with pytest.raises(ValueError, match="History"):
+            frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
+                               frame.History.create(RenderConfig(width=8, height=8), "cpu"))
 
 
 def _scene_variant(name):

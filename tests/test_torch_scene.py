@@ -90,13 +90,14 @@ def test_convert_camera_settings_history_round_trip():
     _assert_leaves_equal(_np_leaves(convert.settings_from_numpy(_np_leaves(s), device="cpu")), _np_leaves(s))
     # the REFERENCE history, and with the L1 cache's; REBLUR's two signal
     # histories plus SIGMA's; RELAX's with SIGMA's, TAA's, the SHARC cache
-    # and the confidence history
+    # and the confidence history; the RR slot's
     slots = ("reference", "relax_diff", "relax_spec", "reblur_diff", "reblur_spec", "sigma", "taa",
-             "sharc", "confidence", "l1")
+             "sharc", "confidence", "l1", "neural_rr")
     relax_cfg = dataclasses.replace(cfg_from_render({"denoiser": 1}, res=10), use_taa=True,
                                     use_sharc=True, use_confidence=True, sharc_capacity=64)
     for cfg in (cfg_from_render({}, res=8), cfg_from_render({"use_l1_cache": True}, res=8),
-                cfg_from_render({"denoiser": 0}, res=8), relax_cfg):
+                cfg_from_render({"denoiser": 0}, res=8), relax_cfg,
+                cfg_from_render({"denoiser": 3}, res=8)):
         h = jframe.History.create(cfg)
         h = dataclasses.replace(h, frame_index=jnp.int32(5))
         want = {k: None if getattr(h, k) is None else _np_leaves(getattr(h, k)) for k in slots}
