@@ -27,7 +27,11 @@ sanitization (REBLUR, and RELAX + TAA), runs the output chain (kitchen1080
 with the post chain to 3840x2160 and with the learned RR denoiser, timed;
 every gather call of an RR frame against its plain version; the networks and
 a 192x192 -> 384x384 image phase against the CPU; the held-out RR gate; every
-debug view; the port's CLI as a subprocess), and prints one JSON line of
+debug view; the port's CLI as a subprocess), then the differentiable path
+(phase 8: ``train.bench_backward`` at 512x512 with its finite-difference
+check, one ``make_train_step`` on kitchen1080 at 1920x1080, the CLI's
+``optimize`` as a subprocess, one step's gradients card against CPU, the
+five-field step through the probe kernel), and prints one JSON line of
 kernels plus a final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
 with no result line. It also runs the backward of the three denoiser
 dispatchers on (1080, 1920) planes that require grad (the kernel's forward,
@@ -1013,6 +1017,166 @@ def check_output_chain(dev, card: str, launches: dict, reset_counts, counters: d
     return summary
 
 
+TRAIN_FD_LIMIT = 0.08            # bench.py's grad_allclose_fd
+TRAIN_BENCH_SIZE = 512
+#: kitchen1080's training step runs at the full 1920x1080: the autograd
+#: graph saves ~16.0 KB a pixel (the 16 importance candidates' planes among
+#: them), ~33 GB in all (PERF.md §6), within the card's 80 GB
+TRAIN_KITCHEN_W, TRAIN_KITCHEN_H = 1920, 1080
+GRAD_TOL = 1e-4                  # card against CPU, of the field's largest |CPU entry|
+#: the CLI's defaults (cornellbox 48x48, 200 iters, sun -30) with the lr of
+#: tests/test_grad.py (2e-4 at 32x32) scaled by 1/n_pixels, as --lr's help
+#: says: at the default 4e-4 the JAX package's own optimize oscillates and
+#: ends unrecovered, and the port with it (PERF.md §6)
+OPTIMIZE_ARGS = ["optimize", "--lr", repr(2e-4 * 32 * 32 / (48 * 48))]
+
+
+def check_training(dev, card: str, reset_counts, counters: dict) -> dict:
+    """The differentiable path (phase 8): (A) ``train.bench_backward`` at
+    512x512 through the resident packet kernel, its finite-difference check
+    within TRAIN_FD_LIMIT; (B) one ``make_train_step`` on kitchen1080 at
+    TRAIN_KITCHEN_W x TRAIN_KITCHEN_H (RELAX + SIGMA, SH, TAA, SHARC,
+    confidence): wall and device-busy ms, peak memory, each kernel's
+    launches in the step (the backward launches none: it differentiates
+    the plain versions), finite gradients; (C) ``python -m
+    nrdsample_tpu_torch.cli optimize`` as a subprocess (OPTIMIZE_ARGS),
+    exit 0 and recovered; (D) one step's gradients card against CPU, every
+    field entry by entry within GRAD_TOL of its largest |CPU entry|, on the
+    Cornell box at 64x64 and the kitchen at 80x48; (E) ``make_train_step``
+    on the Cornell box at 256x256 through the probe kernel, and on
+    shaderballs512 through the packet kernel and REBLUR's gathers (its
+    specular history is gathered at a position that depends on the
+    roughness: the gather kernel's forward, the plain version's gradient).
+    Returns the summary numbers."""
+    from nrdsample_tpu_torch.ops import packet
+    from nrdsample_tpu_torch.pipeline import bench_configs, frame, train
+
+    def synced():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def launched(what: str, need) -> dict:
+        got = {k: m.LAUNCHES for k, m in counters.items()}
+        missing = [k for k in need if not got[k]]
+        if missing:
+            fail(f"{what} launched no {missing}: {got}")
+        return got
+
+    summary = {}
+    # (A) the backward bench
+    reset_counts()
+    t0 = time.perf_counter()
+    bench = train.bench_backward(TRAIN_BENCH_SIZE, 4, dev)
+    bench_s = time.perf_counter() - t0
+    counts = launched("the backward bench", ["packet_hit"])
+    print(f"[training] (A) bench_backward at {TRAIN_BENCH_SIZE}x{TRAIN_BENCH_SIZE} "
+          f"(shaderballs, REFERENCE, 2 bounces): {json.dumps(bench)}; launches {counts}, "
+          f"streaming {packet.STREAM_LAUNCHES}; {bench_s:.1f} s ({card})")
+    if not bench["grad_fd_rel_err"] < TRAIN_FD_LIMIT or packet.STREAM_LAUNCHES:
+        fail(f"the backward bench's FD check failed or left the resident kernel: {bench}")
+    summary["A"] = bench
+
+    # (B) one training step on kitchen1080
+    ctx, scene, cam, cfg, settings = bench_configs.setup(
+        "kitchen1080", dev, width=TRAIN_KITCHEN_W, height=TRAIN_KITCHEN_H)
+    target = torch.zeros((cfg.n_pixels, 3), device=dev)
+    step = train.make_train_step(ctx, cfg, lr=2e-4 * 1024 / cfg.n_pixels)
+    hist = frame.History.create(cfg, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(scene.materials, scene, cam, settings, hist, target)    # warm-up
+    reset_counts()
+    t0 = synced()
+    loss, mats = step(scene.materials, scene, cam, settings, hist, target)
+    wall_ms = (synced() - t0) * 1e3
+    counts = launched("the kitchen1080 training step",
+                      [k for k in counters if k != "packet_hit"])
+    busy_ms, n_kernels = device_busy_ms(
+        lambda: step(scene.materials, scene, cam, settings, hist, target))
+    diff, rest = train.split_materials(scene.materials)
+    _, grads = train.value_and_grad(train.make_loss_fn(ctx, cfg), diff, rest, scene, cam,
+                                    settings, hist, target)
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    moved = sum(int((getattr(mats, k) != v).sum()) for k, v in diff.items())
+    print(f"[training] (B) kitchen1080 make_train_step at {cfg.width}x{cfg.height}: wall "
+          f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms in {n_kernels} kernels, peak memory "
+          f"{peak} B, launches in the step {counts}, loss {float(loss):.6g}, gradients finite "
+          f"{finite}, largest |gradient| per field "
+          + ", ".join(f"{k} {float(g.abs().max()):.4g}" for k, g in grads.items())
+          + f", {moved} parameters moved ({card})")
+    if not finite or not bool(torch.isfinite(loss)) or not moved:
+        fail("the kitchen1080 training step's gradients are not finite or moved nothing")
+    summary["B"] = (wall_ms, busy_ms, peak, counts)
+    del ctx, scene, hist, grads, mats, step, target
+    torch.cuda.empty_cache()
+
+    # (C) the CLI's optimize as a user runs it
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "nrdsample_tpu_torch.cli", *OPTIMIZE_ARGS],
+                       cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    last = (r.stdout.strip().splitlines() or [""])[-1]
+    print(f"[training] (C) python -m nrdsample_tpu_torch.cli {' '.join(OPTIMIZE_ARGS)}: rc "
+          f"{r.returncode} in {cli_s:.1f} s; "
+          + " | ".join((r.stderr.strip().splitlines() or [""])[-2:]) + f" | {last} ({card})")
+    try:
+        result = json.loads(last)
+    except ValueError:
+        result = {}
+    if r.returncode != 0 or result.get("recovered") is not True:
+        fail(f"optimize did not recover the albedo: {r.stderr[-2000:]}")
+    summary["C"] = (cli_s, result)
+
+    # (D) one step's gradients, card against CPU
+    worst = {}
+    for name, kw in (("cornell256", dict(width=64, height=64)),
+                     ("kitchen1080", dict(width=80, height=48, sharc_capacity=1 << 16))):
+        grads = {}
+        for where in ("cpu", dev):
+            ctx, scene, cam, cfg, settings = bench_configs.setup(name, where, **kw)
+            diff, rest = train.split_materials(scene.materials)
+            grads[where] = train.value_and_grad(
+                train.make_loss_fn(ctx, cfg), diff, rest, scene, cam, settings,
+                frame.History.create(cfg, where), torch.zeros((cfg.n_pixels, 3), device=where))[1]
+        rel = {}
+        for k, want in grads["cpu"].items():
+            got = grads[dev][k].cpu()
+            scale = float(want.abs().max())
+            gap = float((got - want).abs().max())
+            rel[k] = gap / scale if scale > 0.0 else gap
+            if not bool(torch.isfinite(got).all()) or gap > GRAD_TOL * scale:
+                fail(f"{name} at {kw['width']}x{kw['height']}: the card's {k} gradient is "
+                     f"{gap:.4g} off the CPU's (largest |CPU entry| {scale:.4g})")
+        worst[name] = rel
+        print(f"[training] (D) {name}'s config at {kw['width']}x{kw['height']}, card against "
+              f"CPU gradients, largest gap over the field's largest |CPU entry|: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+    summary["D"] = worst
+
+    # (E) the five-field step through the emissive probe kernel, and through
+    # the packet kernel and REBLUR's gathers
+    for name, need in (("cornell256", ["dense_hit", "emissive_probe"]),
+                       ("shaderballs512", ["packet_hit", "bilinear_sample"])):
+        ctx, scene, cam, cfg, settings = bench_configs.setup(name, dev)
+        reset_counts()
+        t0 = synced()
+        loss, mats = train.make_train_step(ctx, cfg, lr=2e-4 * 1024 / cfg.n_pixels)(
+            scene.materials, scene, cam, settings, frame.History.create(cfg, dev),
+            torch.zeros((cfg.n_pixels, 3), device=dev))
+        step_ms = (synced() - t0) * 1e3
+        counts = launched(f"the {name} training step", need)
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(getattr(mats, k)).all())
+            for k in train.DIFFERENTIABLE_MATERIAL_FIELDS)
+        print(f"[training] (E) {name} make_train_step at {cfg.width}x{cfg.height}, all five "
+              f"fields differentiated: {step_ms:.3f} ms (the first step), loss "
+              f"{float(loss):.6g}, finite {finite}, launches {counts}")
+        if not finite:
+            fail(f"the {name} training step is not finite")
+    return summary
+
+
 def main() -> int:
     import argparse
 
@@ -1986,6 +2150,19 @@ def main() -> int:
     again_ms, host = shaderballs_frames()[:2]
     print(f"[shaderballs512 again] {again_ms:.3f} ms/frame over {SB_FRAMES} frames after 2 warm-up, "
           f"after the other phases (phase 2: {sb_ms:.3f}), {spread(host)} ({card})")
+    del ctx, scene
+    torch.cuda.empty_cache()
+
+    # ---- 8. the differentiable path: the backward bench, a kitchen1080
+    # training step, the CLI's optimize, card against CPU gradients, the
+    # five-field step through the probe kernel ----
+    t0 = time.perf_counter()
+    train_counters = {"dense_hit": dense_cuda, "emissive_probe": emissive_probe,
+                      "packet_hit": packet, "bilinear_sample": reproject,
+                      "relax_taccum": taccum_cuda, "relax_atrous": atrous_cuda,
+                      "taa_resolve": taa_cuda}
+    training = check_training(dev, card, reset_counts, train_counters)
+    print(f"[training] phase in {time.perf_counter() - t0:.1f} s")
 
     dense = results[("dense", "kitchen", "per-ray")]
     prim = packet_res["primary"]
@@ -2074,6 +2251,13 @@ def main() -> int:
                                         ("taa_resolve", taa_res))
                       for case, v in res.items())
           + f" ({card})")
+    ab, kb = training["A"], training["B"]
+    print(f"[training summary] (A) bench_backward 512x512: forward {ab['grad_forward_ms']:.3f} ms, "
+          f"backward {ab['grad_backward_ms']:.3f} ms, ratio {ab['backward_forward_ratio']:.3f}, "
+          f"busy {ab['grad_forward_busy_ms']:.3f} / {ab['grad_value_and_grad_busy_ms']:.3f} ms, "
+          f"peak {ab['peak_memory_bytes']} B, FD rel err {ab['grad_fd_rel_err']:.4g}; (B) "
+          f"kitchen1080 step {kb[0]:.3f} ms wall, {kb[1]:.3f} ms busy, peak {kb[2]} B, launches "
+          f"{kb[3]}; (C) optimize {training['C'][0]:.1f} s ({card})")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

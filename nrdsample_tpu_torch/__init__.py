@@ -9,8 +9,11 @@ first use and bound through ``ctypes``.
 Ported so far: every branch of ``pipeline.frame.render_frame`` (every
 denoiser, the radiance caches, TAA, the output-resolution chain with the
 learned SR and RR networks, the debug views), for scenes in dense mode
-(<= 1024 triangles) and cluster mode, with glass, and the ``render`` and
-``scenes`` commands of ``python -m nrdsample_tpu_torch.cli``. Entry points
+(<= 1024 triangles) and cluster mode, with glass; the single-device
+training step, its backward bench and checkpoints (``pipeline/train.py``,
+``checkpoint.py``), with JAX's gradient conventions; and the ``render``,
+``optimize`` and ``scenes`` commands of ``python -m
+nrdsample_tpu_torch.cli``. Entry points
 put their tensors on the CUDA card unless the caller passes
 ``device="cpu"``. Scene features of later slices (textures, alpha test,
 instances) raise ``NotImplementedError``.

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from nrdsample_tpu_torch.denoise import common
-from nrdsample_tpu_torch.mathlib import rng
+from nrdsample_tpu_torch.mathlib import geometry as geo, rng
 
 
 def checkerboard_mask(h: int, w: int, frame) -> torch.Tensor:
@@ -50,5 +50,5 @@ def hitdist_reconstruct_3x3(hitdist: torch.Tensor) -> torch.Tensor:
         for dx in (-1, 0, 1):
             num = num + common.shifted(hitdist, dy, dx)
             den = den + common.shifted(valid, dy, dx)
-    fill = num / torch.clamp_min(den, 1.0)
+    fill = num / geo.clip_min(den, 1.0)
     return torch.where(hitdist > 0.0, hitdist, fill)

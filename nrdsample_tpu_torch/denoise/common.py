@@ -69,7 +69,7 @@ def anti_firefly(img: torch.Tensor) -> torch.Tensor:
             nmin = ln if nmin is None else torch.minimum(nmin, ln)
             nmax = ln if nmax is None else torch.maximum(nmax, ln)
     clamped = torch.minimum(torch.maximum(lum, nmin), nmax)
-    scale = clamped / torch.clamp_min(lum, 1e-9)
+    scale = clamped / geo.clip_min(lum, 1e-9)
     return img * scale[..., None]
 
 
@@ -85,7 +85,7 @@ def disocclusion_weight(view_z, mv_z, prev_view_z_reproj, normal=None, prev_norm
     viewZ (viewZ + mv.z) must match the reprojected one relative to the
     depth, and the normals must agree (dot > 0.5) when given."""
     expected = view_z + mv_z
-    rel = torch.abs(prev_view_z_reproj - expected) / torch.clamp_min(torch.abs(view_z), 1e-3)
+    rel = geo.absolute(prev_view_z_reproj - expected) / geo.clip_min(geo.absolute(view_z), 1e-3)
     ok = (rel < threshold).to(view_z.dtype)
     if normal is not None and prev_normal_reproj is not None:
         ndot = geo.dot3(normal, prev_normal_reproj)

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from nrdsample_tpu_torch.config import OnScreen
+from nrdsample_tpu_torch.mathlib import geometry as geo
 from nrdsample_tpu_torch.ops import sharc
 
 
@@ -65,7 +66,7 @@ def debug_view(on_screen: int, gb: dict, composed: torch.Tensor, sharc_state=Non
         return gb["spec_radiance"] * gb["spec_factor"]
     if on_screen in (OnScreen.AMBIENT_OCCLUSION, OnScreen.SPECULAR_OCCLUSION):
         hd = gb["diff_hitdist" if on_screen == OnScreen.AMBIENT_OCCLUSION else "spec_hitdist"]
-        return _grey(torch.clamp(hd / (hd + 1.0), 0.0, 1.0))
+        return _grey(geo.clip(hd / (hd + 1.0), 0.0, 1.0))
     if on_screen == OnScreen.PSR_THROUGHPUT:
         return gb.get("psr_throughput", torch.ones_like(composed))
     if on_screen == OnScreen.INSTANCE_INDEX:
@@ -78,7 +79,7 @@ def debug_view(on_screen: int, gb: dict, composed: torch.Tensor, sharc_state=Non
         uv = gb["uv"]
         return torch.cat([torch.remainder(uv, 1.0), torch.zeros_like(uv[..., :1])], dim=-1)
     if on_screen == OnScreen.CURVATURE:
-        c = torch.sqrt(torch.abs(gb.get("curvature", torch.zeros_like(gb["view_z"]))) + 1e-12)
+        c = torch.sqrt(geo.absolute(gb.get("curvature", torch.zeros_like(gb["view_z"]))) + 1e-12)
         return _grey(c)
     if on_screen == OnScreen.MIP_PRIMARY:
         return _grey(gb.get("mip", torch.zeros_like(gb["view_z"])) / 8.0)
@@ -103,6 +104,6 @@ def validation_overlay(img: torch.Tensor, frames: torch.Tensor, max_frames,
     red accumulation-age heatmap (fresh disocclusions red, converged history
     green) blended over ``img`` at ``alpha``. img: (N, 3) or (H, W, 3);
     frames: the matching leading shape."""
-    conv = torch.clamp(frames / max_frames, 0.0, 1.0)[..., None]
+    conv = geo.clip(frames / max_frames, 0.0, 1.0)[..., None]
     heat = torch.cat([1.0 - conv, conv, torch.zeros_like(conv)], dim=-1).to(img.dtype)
     return img * (1.0 - alpha) + heat * alpha

@@ -35,9 +35,9 @@ def gradient_from_probes(hist: ConfidenceHistory, probes: dict):
     L_prev_stored|, zeroed where the re-traced depth moved by 5% or more.
     The new history stores this frame's gradient luminance (the probe
     luminance with the dynamic-object term)."""
-    grad = torch.abs(probes["prev_retrace_lum"] - hist.probe_lum)
-    rel = (torch.abs(probes["prev_retrace_vz"] - hist.view_z)
-           / torch.clamp_min(torch.abs(hist.view_z), 1e-3))
+    grad = geo.absolute(probes["prev_retrace_lum"] - hist.probe_lum)
+    rel = (geo.absolute(probes["prev_retrace_vz"] - hist.view_z)
+           / geo.clip_min(geo.absolute(hist.view_z), 1e-3))
     grad = torch.where(rel < 0.05, grad, 0.0)
     return grad, ConfidenceHistory(probe_lum=probes["grad_lum"], view_z=probes["view_z"])
 
@@ -57,20 +57,20 @@ def atrous_blur(grad, view_z, normal, iterations: int = 5):
             for ix, kx in enumerate(gauss):
                 tap = common.shifted(packed, (iy - 1) * step, (ix - 1) * step)
                 g_n, z_n, n_n = tap[..., 0], tap[..., 1], tap[..., 2:5]
-                wz = torch.exp(-torch.abs(z_n - view_z)
-                               / torch.clamp_min(torch.abs(view_z) * 0.1, 1e-3))
-                wn = torch.clamp(geo.dot3(n_n, normal), 0.0, 1.0) ** 2
+                wz = torch.exp(-geo.absolute(z_n - view_z)
+                               / geo.clip_min(geo.absolute(view_z) * 0.1, 1e-3))
+                wn = geo.clip(geo.dot3(n_n, normal), 0.0, 1.0) ** 2
                 w = ky * kx * wz * wn
                 acc = acc + g_n * w
                 acc_w = acc_w + w
-        out = acc / torch.clamp_min(acc_w, 1e-9)
+        out = acc / geo.clip_min(acc_w, 1e-9)
     return out
 
 
 def gradient_to_confidence(grad, frame, relax_square: bool = False):
     """Blurred gradient -> [0, 1] history confidence (ConfidenceBlur.cs.hlsl:
     91-103): a big change gives a low confidence; Bayer-dithered."""
-    c = 1.0 - torch.clamp(color.inverse_tonemap_lum(torch.clamp(grad, 0.0, 0.99)), 0.0, 1.0)
+    c = 1.0 - geo.clip(color.inverse_tonemap_lum(geo.clip(grad, 0.0, 0.99)), 0.0, 1.0)
     c = color.linear_to_srgb(c)
     if relax_square:
         c = c * c
@@ -78,4 +78,4 @@ def gradient_to_confidence(grad, frame, relax_square: bool = False):
     py, px = torch.meshgrid(torch.arange(h, device=c.device), torch.arange(w, device=c.device),
                             indexing="ij")
     dither = (rng.bayer4x4(px, py, frame) - 0.5) * (1.0 / 16.0)
-    return torch.clamp(c + dither, 0.0, 1.0)
+    return geo.clip(c + dither, 0.0, 1.0)

@@ -14,12 +14,12 @@ def norm_hitdist(hitdist: torch.Tensor, view_z: torch.Tensor,
                  a: float = 3.0, b: float = 0.1) -> torch.Tensor:
     """Hit distance over (A + B |viewZ|), REBLUR's normalization with its
     default A and B."""
-    return hitdist / (a + b * torch.abs(view_z))
+    return hitdist / (a + b * geo.absolute(view_z))
 
 
 def occlusion_from_hitdist(norm_hitdist: torch.Tensor) -> torch.Tensor:
     """Normalized hit distance -> ambient occlusion in [0, 1]."""
-    return torch.clamp(norm_hitdist, 0.0, 1.0)
+    return geo.clip(norm_hitdist, 0.0, 1.0)
 
 
 def directional_occlusion(norm_hitdist: torch.Tensor, bounce_dir: torch.Tensor,
@@ -27,7 +27,7 @@ def directional_occlusion(norm_hitdist: torch.Tensor, bounce_dir: torch.Tensor,
     """Bent-normal occlusion: the openness weighted by how well the first
     bounce's direction agrees with the normal."""
     occ = occlusion_from_hitdist(norm_hitdist)
-    cos = torch.clamp(geo.dot3(bounce_dir, normal), 0.0, 1.0)
+    cos = geo.clip(geo.dot3(bounce_dir, normal), 0.0, 1.0)
     return occ * (0.25 + 0.75 * cos)
 
 

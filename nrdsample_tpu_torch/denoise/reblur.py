@@ -70,7 +70,7 @@ def spec_magic_curve(roughness):
 def specular_dominant_factor(roughness):
     """Share of the specular lobe that behaves like a mirror: 1 at r = 0,
     0 at r = 1."""
-    r = torch.clamp(roughness, 0.0, 1.0)
+    r = geo.clip(roughness, 0.0, 1.0)
     return (1.0 - r) * (torch.sqrt(1.0 - r) + r)
 
 
@@ -98,12 +98,12 @@ def blur_radius(hitdist, view_z, roughness, frames, s: ReblurSettings, is_spec: 
     the hit distance, and for specular with the spec magic curve."""
     conv = frames / s.max_accumulated_frames
     radius = s.blur_radius_px * (1.0 - 0.9 * conv)
-    pixel_size = torch.clamp_min(torch.abs(view_z) * unproject, 1e-6)
-    hit_factor = torch.clamp(hitdist / (pixel_size * 30.0), 0.05, 1.0)
+    pixel_size = geo.clip_min(geo.absolute(view_z) * unproject, 1e-6)
+    hit_factor = geo.clip(hitdist / (pixel_size * 30.0), 0.05, 1.0)
     radius = radius * hit_factor
     if is_spec:
-        radius = radius * torch.clamp(spec_magic_curve(roughness), 0.05, 1.0)
-    return torch.clamp_min(radius, s.min_blur_radius_px)
+        radius = radius * geo.clip(spec_magic_curve(roughness), 0.05, 1.0)
+    return geo.clip_min(radius, s.min_blur_radius_px)
 
 
 _GAUSS_3 = (0.25, 0.5, 0.25)
@@ -111,9 +111,9 @@ _BLUR_STEPS = (1, 2, 4, 8)
 
 
 def _edge_weights(z_n, n_n, view_z, normal, s: ReblurSettings):
-    wz = torch.exp(-torch.abs(z_n - view_z)
-                   / (s.phi_depth * torch.clamp_min(torch.abs(view_z), 1e-3)))
-    wn = torch.pow(torch.clamp(torch.sum(n_n * normal, dim=-1), 0.0, 1.0), s.phi_normal)
+    wz = torch.exp(-geo.absolute(z_n - view_z)
+                   / (s.phi_depth * geo.clip_min(geo.absolute(view_z), 1e-3)))
+    wn = torch.pow(geo.clip(torch.sum(n_n * normal, dim=-1), 0.0, 1.0), s.phi_normal)
     return wz, wn
 
 
@@ -126,10 +126,10 @@ def adaptive_blur(illum, hitdist, view_z, normal, roughness, frames, frame_idx,
     geom = torch.cat([view_z[..., None], normal], dim=-1)
     out = illum
     out_hd = hitdist
-    remaining = torch.clamp_min(radius - 0.5, 0.0)   # sub-pixel radii stay sharp
+    remaining = geo.clip_min(radius - 0.5, 0.0)   # sub-pixel radii stay sharp
     for step in _BLUR_STEPS:
-        gate = torch.clamp(remaining / step, 0.0, 1.0)
-        remaining = torch.clamp_min(remaining - gate * step, 0.0)
+        gate = geo.clip(remaining / step, 0.0, 1.0)
+        remaining = geo.clip_min(remaining - gate * step, 0.0)
         packed = torch.cat([out, out_hd[..., None], geom], dim=-1)
         acc = torch.zeros_like(out)
         acc_hd = torch.zeros_like(out_hd)
@@ -143,7 +143,7 @@ def adaptive_blur(illum, hitdist, view_z, normal, roughness, frames, frame_idx,
                 acc = acc + tap[..., 0:3] * wgt[..., None]
                 acc_hd = acc_hd + tap[..., 3] * wgt
                 acc_w = acc_w + wgt
-        inv = 1.0 / torch.clamp_min(acc_w, 1e-6)
+        inv = 1.0 / geo.clip_min(acc_w, 1e-6)
         out = acc * inv[..., None]
         out_hd = acc_hd * inv
     return out, out_hd
@@ -153,7 +153,7 @@ def history_fix(acc, fast, view_z, normal, frames, s: ReblurSettings):
     """HistoryFix: where fewer than ``history_fix_frame_num`` frames were
     accumulated (a fresh disocclusion), blend toward a wide 5x5, stride-2
     depth/normal-bilateral blur. Returns (fixed slow, fixed fast)."""
-    fix_w = torch.clamp(1.0 - frames / s.history_fix_frame_num, 0.0, 1.0)
+    fix_w = geo.clip(1.0 - frames / s.history_fix_frame_num, 0.0, 1.0)
     st = s.history_fix_stride
     acc_s = torch.zeros_like(acc)
     acc_f = torch.zeros_like(fast)
@@ -165,7 +165,7 @@ def history_fix(acc, fast, view_z, normal, frames, s: ReblurSettings):
         acc_s = acc_s + common.shifted(acc, dy * st, dx * st) * wgt[..., None]
         acc_f = acc_f + common.shifted(fast, dy * st, dx * st) * wgt[..., None]
         w_sum = w_sum + wgt
-    inv = 1.0 / torch.clamp_min(w_sum, 1e-6)
+    inv = 1.0 / geo.clip_min(w_sum, 1e-6)
     blur_s = acc_s * inv[..., None]
     blur_f = acc_f * inv[..., None]
     return (acc + (blur_s - acc) * fix_w[..., None],
@@ -236,11 +236,11 @@ def stabilize(blurred, fast, frames, s: ReblurSettings):
         mu = mu + f_n
         mu2 = mu2 + f_n * f_n
     mu = mu / 9.0
-    sigma = torch.sqrt(torch.clamp_min(mu2 / 9.0 - mu * mu, 0.0) + 1e-12)
+    sigma = torch.sqrt(geo.clip_min(mu2 / 9.0 - mu * mu, 0.0) + 1e-12)
     lo = mu - sigma * s.anti_lag_sigma
     hi = mu + sigma * s.anti_lag_sigma
     clamped = torch.minimum(torch.maximum(blurred, lo), hi)
-    out_dist = color.luminance(torch.abs(blurred - clamped))
+    out_dist = color.luminance(geo.absolute(blurred - clamped))
     sig_lum = color.luminance(sigma) * s.anti_lag_sigma + 1e-6
     delta = out_dist / sig_lum
     return clamped, frames / (1.0 + delta)

@@ -105,7 +105,7 @@ def estimate_variance(illum, moments, frames):
     """Step 2: temporal variance of the luminance, with a 3x3 spatial
     estimate for histories shorter than 4 frames."""
     m1 = moments[..., 0]
-    var_t = torch.clamp_min(moments[..., 1] - m1 * m1, 0.0)
+    var_t = geo.clip_min(moments[..., 1] - m1 * m1, 0.0)
     lum = color.luminance(illum)
     s1 = torch.zeros_like(lum)
     s2 = torch.zeros_like(lum)
@@ -114,7 +114,7 @@ def estimate_variance(illum, moments, frames):
         s1 = s1 + ln
         s2 = s2 + ln * ln
     mu1 = s1 * (1.0 / 9.0)
-    var_s = torch.clamp_min(s2 * (1.0 / 9.0) - mu1 * mu1, 0.0)
+    var_s = geo.clip_min(s2 * (1.0 / 9.0) - mu1 * mu1, 0.0)
     return torch.where(frames < 4.0, torch.maximum(var_s, var_t), var_t)
 
 
@@ -158,8 +158,8 @@ def atrous_iteration(illum, variance, view_z, normal, step: int, s: RelaxSetting
     (the plain version of the à-trous kernel). Returns (illum, variance)."""
     lum_c = color.luminance(illum)
     # +eps inside the sqrt keeps its gradient finite at 0
-    sigma_l = torch.sqrt(torch.clamp_min(variance, 0.0) + 1e-12) * s.phi_luminance + 1e-4
-    abs_z = torch.clamp_min(torch.abs(view_z), 1e-3)
+    sigma_l = torch.sqrt(geo.clip_min(variance, 0.0) + 1e-12) * s.phi_luminance + 1e-4
+    abs_z = geo.clip_min(geo.absolute(view_z), 1e-3)
     packed = torch.cat([illum, variance[..., None], view_z[..., None], normal], dim=-1)
     acc = torch.zeros_like(illum)
     acc_var = torch.zeros_like(variance)
@@ -169,15 +169,15 @@ def atrous_iteration(illum, variance, view_z, normal, step: int, s: RelaxSetting
             dy, dx = (iy - 1) * step, (ix - 1) * step
             tap = common.shifted(packed, dy, dx)
             illum_n, var_n, z_n, n_n = tap[..., 0:3], tap[..., 3], tap[..., 4], tap[..., 5:8]
-            wz = torch.exp(-torch.abs(z_n - view_z)
+            wz = torch.exp(-geo.absolute(z_n - view_z)
                            / (s.phi_depth * abs_z * (abs(dy) + abs(dx) + 1e-3)))
-            wn = torch.pow(torch.clamp(geo.dot3(n_n, normal), 0.0, 1.0), s.phi_normal)
-            wl = torch.exp(-torch.abs(color.luminance(illum_n) - lum_c) / sigma_l)
+            wn = torch.pow(geo.clip(geo.dot3(n_n, normal), 0.0, 1.0), s.phi_normal)
+            wl = torch.exp(-geo.absolute(color.luminance(illum_n) - lum_c) / sigma_l)
             wgt = ky * kx * wz * wn * wl
             acc = acc + illum_n * wgt[..., None]
             acc_var = acc_var + var_n * wgt * wgt
             acc_w = acc_w + wgt
-    inv = 1.0 / torch.clamp_min(acc_w, 1e-6)
+    inv = 1.0 / geo.clip_min(acc_w, 1e-6)
     return acc * inv[..., None], acc_var * inv * inv
 
 

@@ -24,8 +24,8 @@ def resolve(sh: dict, normal: torch.Tensor) -> torch.Tensor:
     d = sh["dir"]
     dlen = geo.length(d)
     dn = d * geo.positive_rcp(dlen)[..., None]
-    cos = torch.clamp(geo.dot3(dn, normal), 0.0, 1.0)
+    cos = geo.clip(geo.dot3(dn, normal), 0.0, 1.0)
     lum = color.luminance(sh["radiance"])
-    conf = torch.clamp(dlen / torch.clamp_min(lum, 1e-6), 0.0, 1.0)
+    conf = geo.clip(dlen / geo.clip_min(lum, 1e-6), 0.0, 1.0)
     scale = 1.0 + conf * (2.0 * cos - 1.0)
-    return sh["radiance"] * torch.clamp_min(scale, 0.0)[..., None]
+    return sh["radiance"] * geo.clip_min(scale, 0.0)[..., None]

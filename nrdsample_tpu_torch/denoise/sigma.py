@@ -14,6 +14,7 @@ import dataclasses
 import torch
 
 from nrdsample_tpu_torch.denoise import common
+from nrdsample_tpu_torch.mathlib import geometry as geo
 from nrdsample_tpu_torch.ops import reproject as repr_mod
 
 
@@ -47,14 +48,14 @@ _BLUR_STEPS = (1, 2, 4, 8)
 def _blur_radius(shadow_hit_dist, view_z, tan_sun_angular_radius, unproject, s: SigmaSettings):
     """(H, W) penumbra radius in pixels, spread by two 3x3 max filters so lit
     pixels bordering a shadow blur too."""
-    pixel_size = torch.clamp_min(torch.abs(view_z) * unproject, 1e-6)
+    pixel_size = geo.clip_min(geo.absolute(view_z) * unproject, 1e-6)
     radius = shadow_hit_dist * tan_sun_angular_radius / pixel_size
     for _ in range(2):
         r = radius
         for dy, dx in common.stencil_taps(1):
             r = torch.maximum(r, common.shifted(radius, dy, dx))
         radius = r
-    return torch.clamp(radius, 0.0, s.max_radius_px)
+    return geo.clip(radius, 0.0, s.max_radius_px)
 
 
 def _penumbra_blur(shadow, radius, view_z, s: SigmaSettings):
@@ -63,10 +64,10 @@ def _penumbra_blur(shadow, radius, view_z, s: SigmaSettings):
     the kernel's half-width never exceeds the local penumbra."""
     out = shadow
     z_plane = view_z[..., None]
-    remaining = torch.clamp_min(radius - 0.5, 0.0)   # sub-pixel penumbrae stay sharp
+    remaining = geo.clip_min(radius - 0.5, 0.0)   # sub-pixel penumbrae stay sharp
     for step in _BLUR_STEPS:
-        gate = torch.clamp(remaining / step, 0.0, 1.0)
-        remaining = torch.clamp_min(remaining - gate * step, 0.0)
+        gate = geo.clip(remaining / step, 0.0, 1.0)
+        remaining = geo.clip_min(remaining - gate * step, 0.0)
         packed = torch.cat([out[..., None], z_plane], dim=-1)
         acc = torch.zeros_like(out)
         acc_w = torch.zeros_like(out)
@@ -75,12 +76,12 @@ def _penumbra_blur(shadow, radius, view_z, s: SigmaSettings):
                 dy, dx = (iy - 1) * step, (ix - 1) * step
                 tap = common.shifted(packed, dy, dx)
                 s_n, z_n = tap[..., 0], tap[..., 1]
-                wz = torch.exp(-torch.abs(z_n - view_z)
-                               / (s.phi_depth * torch.clamp_min(torch.abs(view_z), 1e-3)))
+                wz = torch.exp(-geo.absolute(z_n - view_z)
+                               / (s.phi_depth * geo.clip_min(geo.absolute(view_z), 1e-3)))
                 wgt = ky * kx * wz * (gate if (dy or dx) else 1.0)
                 acc = acc + s_n * wgt
                 acc_w = acc_w + wgt
-        out = acc / torch.clamp_min(acc_w, 1e-6)
+        out = acc / geo.clip_min(acc_w, 1e-6)
     return out
 
 
@@ -112,9 +113,9 @@ def denoise(hist: SigmaHistory, shadow, shadow_hit_dist, view_z, mv, tan_sun_ang
     valid = valid * common.disocclusion_weight(view_z, mv_z, prev_z,
                                                threshold=s.disocclusion_threshold)
     valid = torch.where(common.reset_mask(reset, valid), 0.0, valid)
-    frames = torch.clamp_max(prev_frames * valid + 1.0, s.max_accumulated_frames)
+    frames = geo.clip_max(prev_frames * valid + 1.0, s.max_accumulated_frames)
     alpha = 1.0 / frames
     out = prev * (1 - alpha) + blurred * alpha
     out = torch.where(valid > 0, out, blurred)
-    out = torch.clamp(out, 0.0, 1.0)
+    out = geo.clip(out, 0.0, 1.0)
     return out, SigmaHistory(shadow=out, frames=frames, view_z=view_z)

@@ -63,7 +63,7 @@ def _moments(cur, radius: int):
         s2 = s2 + cn * cn
     inv_n = 1.0 / float((2 * radius + 1) ** 2)
     mu = s1 * inv_n
-    return mu, torch.sqrt(torch.clamp_min(s2 * inv_n - mu * mu, 0.0) + 1e-12)
+    return mu, torch.sqrt(geo.clip_min(s2 * inv_n - mu * mu, 0.0) + 1e-12)
 
 
 def resolve_tail(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale: float, base_mix: float):
@@ -83,15 +83,15 @@ def resolve_tail(cur, prev, mv_d, wide_mask, reset_mix, sigma_scale: float, base
     clamped = torch.minimum(torch.maximum(prev, lo), hi)
 
     # disocclusion-driven mix-rate boost by the CIELAB just-noticeable difference
-    d = (color.rgb_to_lab(torch.clamp(prev, 0.0, 1.0))
-         - color.rgb_to_lab(torch.clamp(clamped, 0.0, 1.0)))
+    d = (color.rgb_to_lab(geo.clip(prev, 0.0, 1.0))
+         - color.rgb_to_lab(geo.clip(clamped, 0.0, 1.0)))
     # |d| = 0 wherever the history lies inside its clamp window; sqrt's
     # derivative there is infinite and would make the gradient NaN (0 * inf),
     # so the norm takes the subgradient 0 at 0. Its value is sqrt's.
     dd = geo.dot3(d, d)
     de = torch.where(dd == 0.0, 0.0, torch.sqrt(torch.where(dd == 0.0, 1.0, dd)))
-    jnd = torch.clamp(de * (1.0 / 23.0), 0.0, 1.0)
-    mix = torch.clamp(base_mix + jnd * 0.5, 0.0, 1.0)
+    jnd = geo.clip(de * (1.0 / 23.0), 0.0, 1.0)
+    mix = geo.clip(base_mix + jnd * 0.5, 0.0, 1.0)
     mix = torch.where(common.in_screen(mv_d, h, w), mix, 1.0)
     mix = torch.maximum(mix, reset_mix)
     return clamped + (cur - clamped) * mix[..., None]
@@ -124,13 +124,13 @@ def debug_weight(hist: TaaHistory, cur, mv, view_z, wide_mask=None, base_mix: fl
         mu = mu + cn
         mu2 = mu2 + cn * cn
     mu = mu / 9.0
-    sigma = torch.sqrt(torch.clamp_min(mu2 / 9.0 - mu * mu, 0.0) + 1e-12)
+    sigma = torch.sqrt(geo.clip_min(mu2 / 9.0 - mu * mu, 0.0) + 1e-12)
     clamped = torch.minimum(torch.maximum(prev, mu - sigma * cfgmod.TAA_SIGMA_SCALE),
                             mu + sigma * cfgmod.TAA_SIGMA_SCALE)
-    d = (color.rgb_to_lab(torch.clamp(prev, 0.0, 1.0))
-         - color.rgb_to_lab(torch.clamp(clamped, 0.0, 1.0)))
+    d = (color.rgb_to_lab(geo.clip(prev, 0.0, 1.0))
+         - color.rgb_to_lab(geo.clip(clamped, 0.0, 1.0)))
     de = torch.sqrt(torch.sum(d * d, dim=-1))
-    mix = torch.clamp(base_mix + torch.clamp(de / 23.0, 0.0, 1.0) * 0.5, 0.0, 1.0)
+    mix = geo.clip(base_mix + geo.clip(de / 23.0, 0.0, 1.0) * 0.5, 0.0, 1.0)
     mix = torch.where(common.in_screen(mv_d, h, w), mix, 1.0)
     if wide_mask is not None:
         mix = torch.maximum(mix, wide_mask.to(mix.dtype) * base_mix)

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from nrdsample_tpu_torch.mathlib import geometry as geo
+
 LUMA = (0.2126, 0.7152, 0.0722)
 
 
@@ -20,21 +22,21 @@ def luminance(c: torch.Tensor) -> torch.Tensor:
 
 
 def from_gamma(c, gamma: float = 2.2):
-    return torch.pow(torch.clamp(c, 0.0, 1.0), gamma)
+    return torch.pow(geo.clip(c, 0.0, 1.0), gamma)
 
 
 def to_gamma(c, gamma: float = 2.2):
-    return torch.pow(torch.clamp(c, 0.0, 1.0), 1.0 / gamma)
+    return torch.pow(geo.clip(c, 0.0, 1.0), 1.0 / gamma)
 
 
 def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
-    c = torch.clamp(c, 0.0, 1.0)
-    c_safe = torch.clamp_min(c, 0.0031308)
+    c = geo.clip(c, 0.0, 1.0)
+    c_safe = geo.clip_min(c, 0.0031308)
     return torch.where(c <= 0.0031308, 12.92 * c, 1.055 * torch.pow(c_safe, 1.0 / 2.4) - 0.055)
 
 
 def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
-    c = torch.clamp(c, 0.0, 1.0)
+    c = geo.clip(c, 0.0, 1.0)
     return torch.where(c <= 0.04045, c * (1.0 / 12.92), torch.pow((c + 0.055) * (1.0 / 1.055), 2.4))
 
 
@@ -58,8 +60,8 @@ def tonemap_uncharted(c: torch.Tensor, exposure_bias: float = 2.0) -> torch.Tens
 def inverse_tonemap_lum(y):
     """Approximate inverse of the luminance tonemap curve (the confidence
     mapping of ConfidenceBlur.cs.hlsl:91-103)."""
-    y = torch.clamp(y, 0.0, 0.99)
-    return y / torch.clamp_min(1.0 - y, 1e-3)
+    y = geo.clip(y, 0.0, 0.99)
+    return y / geo.clip_min(1.0 - y, 1e-3)
 
 
 # CIELAB (Taa.cs.hlsl XyzToLab, 44-54)
@@ -73,11 +75,11 @@ def rgb_to_lab(rgb: torch.Tensor) -> torch.Tensor:
     """CIELAB of linear RGB [..., 3]. The cube root is pow(x, 1/3) of the
     operand clamped positive, as the TAA kernel computes it (PyTorch has no
     cbrt); against JAX's cbrt it differs by a few float32 ULPs."""
-    r, g, b = (torch.clamp_min(rgb[..., k], 0.0) for k in range(3))
+    r, g, b = (geo.clip_min(rgb[..., k], 0.0) for k in range(3))
     f = []
     for k in range(3):
         m = RGB2XYZ[k]
         xyz = (m[0] * r + m[1] * g + m[2] * b) * (1.0 / WHITE[k])
-        f.append(torch.where(xyz > 0.008856, torch.pow(torch.clamp_min(xyz, 1e-9), 1.0 / 3.0),
+        f.append(torch.where(xyz > 0.008856, torch.pow(geo.clip_min(xyz, 1e-9), 1.0 / 3.0),
                              7.787 * xyz + 16.0 / 116.0))
     return torch.stack([116.0 * f[1] - 16.0, 500.0 * (f[0] - f[1]), 200.0 * (f[1] - f[2])], dim=-1)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from nrdsample_tpu_torch.mathlib import geometry as geo
+
 
 def _gather2d(img: torch.Tensor, ix: torch.Tensor, iy: torch.Tensor) -> torch.Tensor:
     h, w = img.shape[0], img.shape[1]
@@ -40,7 +42,7 @@ def sample_bicubic_no_corners(img: torch.Tensor, pos: torch.Tensor, sharpness: f
     Shared.hlsli:349-387) of img (H, W, C) at pos (..., 2), as five bilinear
     taps through ``bilinear_fn``."""
     center = torch.floor(pos - 0.5) + 0.5
-    f = torch.clamp(pos - center, 0.0, 1.0)
+    f = geo.clip(pos - center, 0.0, 1.0)
     f2 = f * f
     f3 = f * f2
     s = sharpness
@@ -49,7 +51,7 @@ def sample_bicubic_no_corners(img: torch.Tensor, pos: torch.Tensor, sharpness: f
     w2 = -(2.0 - s) * f3 + (3.0 - 2.0 * s) * f2 + s * f
     w3 = s * f3 - s * f2
     wl2 = w1 + w2
-    tc2 = center + w2 / torch.clamp_min(wl2, 1e-15)
+    tc2 = center + w2 / geo.clip_min(wl2, 1e-15)
     tc0 = center - 1.0
     tc3 = center + 2.0
 
@@ -71,4 +73,4 @@ def sample_bicubic_no_corners(img: torch.Tensor, pos: torch.Tensor, sharpness: f
     w = wl2[..., 0] * w3[..., 1]
     color = color + tap(tc2[..., 0], tc3[..., 1]) * w[..., None]
     total = total + w
-    return color / torch.clamp_min(total, 1e-15)[..., None]
+    return color / geo.clip_min(total, 1e-15)[..., None]

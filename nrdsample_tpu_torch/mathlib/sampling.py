@@ -15,7 +15,7 @@ PI = 3.141592653589793
 def cosine_ray(rnd2: torch.Tensor) -> torch.Tensor:
     """Cosine-weighted hemisphere sample, [..., 2] -> [..., 3]."""
     phi = rnd2[..., 0] * TWO_PI
-    cos_theta = torch.sqrt(torch.clamp_min(1.0 - rnd2[..., 1], 0.0))
+    cos_theta = torch.sqrt(geo.clip_min(1.0 - rnd2[..., 1], 0.0))
     sin_theta = torch.sqrt(rnd2[..., 1])
     return torch.stack(
         [sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], dim=-1
@@ -30,35 +30,35 @@ def vndf_ggx(rnd2: torch.Tensor, v_local: torch.Tensor, roughness, trim: float =
     vh = geo.normalize(a)
     lensq = vh[..., 0] * vh[..., 0] + vh[..., 1] * vh[..., 1]
     t1_perp = torch.stack([-vh[..., 1], vh[..., 0], torch.zeros_like(lensq)], dim=-1) / (
-        torch.sqrt(torch.clamp_min(lensq, 1e-12))[..., None]
+        torch.sqrt(geo.clip_min(lensq, 1e-12))[..., None]
     )
     x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device)
     t1 = torch.where((lensq > 1e-12)[..., None], t1_perp, x_axis)
     t2 = geo.cross(vh, t1)
-    r = torch.sqrt(torch.clamp_min(rnd2[..., 0], 0.0)) * trim
+    r = torch.sqrt(geo.clip_min(rnd2[..., 0], 0.0)) * trim
     phi = TWO_PI * rnd2[..., 1]
     p1 = r * torch.cos(phi)
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + vh[..., 2])
-    p2 = (1.0 - s) * torch.sqrt(torch.clamp_min(1.0 - p1 * p1, 0.0)) + s * p2
-    pz = torch.sqrt(torch.clamp_min(1.0 - p1 * p1 - p2 * p2, 0.0))
+    p2 = (1.0 - s) * torch.sqrt(geo.clip_min(1.0 - p1 * p1, 0.0)) + s * p2
+    pz = torch.sqrt(geo.clip_min(1.0 - p1 * p1 - p2 * p2, 0.0))
     nh = p1[..., None] * t1 + p2[..., None] * t2 + pz[..., None] * vh
     m = torch.stack(
-        [alpha * nh[..., 0], alpha * nh[..., 1], torch.clamp_min(nh[..., 2], 1e-6)], dim=-1
+        [alpha * nh[..., 0], alpha * nh[..., 1], geo.clip_min(nh[..., 2], 1e-6)], dim=-1
     )
     return geo.normalize(m)
 
 
 def ggx_d(n_dot_m: torch.Tensor, alpha) -> torch.Tensor:
     a2 = alpha * alpha
-    c = torch.clamp_min(n_dot_m, 0.0)
+    c = geo.clip_min(n_dot_m, 0.0)
     denom = c * c * (a2 - 1.0) + 1.0
-    return a2 / torch.clamp_min(PI * denom * denom, 1e-15)
+    return a2 / geo.clip_min(PI * denom * denom, 1e-15)
 
 
 def smith_g1(n_dot_v: torch.Tensor, alpha) -> torch.Tensor:
     a2 = alpha * alpha
-    c = torch.clamp_min(n_dot_v, 1e-6)
+    c = geo.clip_min(n_dot_v, 1e-6)
     return 2.0 * c / (c + torch.sqrt(a2 + (1.0 - a2) * c * c))
 
 

@@ -53,8 +53,16 @@ def sample_bilinear_cuda(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 def sample_bilinear_auto(img: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Clamp-to-edge bilinear sample of img at pos [..., 2] (any leading
     batch, such as a tap axis): the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. Where an input requires grad (REBLUR's
+    specular history is gathered at a virtual motion that depends on the
+    roughness) the kernel runs forward and the plain version's autograd
+    gives the gradient, as the JAX package differentiates its XLA gather;
+    the launch is the same."""
     if img.device.type == "cuda":
+        if torch.is_grad_enabled() and (img.requires_grad or pos.requires_grad):
+            return _kernels.with_plain_backward(
+                lambda i, p: sample_bilinear_cuda(i.contiguous(), p.contiguous()),
+                filtering.sample_bilinear, img, pos)
         return sample_bilinear_cuda(img.contiguous(), pos.contiguous())
     if img.device.type == "cpu":
         return filtering.sample_bilinear(img, pos)

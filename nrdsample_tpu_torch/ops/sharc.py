@@ -55,8 +55,8 @@ def grid_level(pos, cam_pos, scene_scale: float = cfgmod.SHARC_SCENE_SCALE, dith
     [0, 1) per sample) replaces the fixed 0.5 rounding offset."""
     d = geo.length(pos - cam_pos, eps=0.0)
     r = 0.5 if dither is None else dither
-    lvl = torch.floor(torch.log2(torch.clamp_min(d, 1e-3)) + r)
-    return torch.clamp(lvl, -4.0, 10.0)
+    lvl = torch.floor(torch.log2(geo.clip_min(d, 1e-3)) + r)
+    return geo.clip(lvl, -4.0, 10.0)
 
 
 def voxel_size(level, scene_scale: float = cfgmod.SHARC_SCENE_SCALE):
@@ -88,7 +88,7 @@ def cell_key(pos, normal, cam_pos, scene_scale: float = cfgmod.SHARC_SCENE_SCALE
     lvl = grid_level(pos, cam_pos, scene_scale, dither=dither)
     vs = voxel_size(lvl, scene_scale)
     q = torch.floor(pos / vs[..., None]).to(torch.int32)
-    ax = torch.argmax(torch.abs(normal), dim=-1)
+    ax = torch.argmax(geo.absolute(normal), dim=-1)
     sgn = torch.gather(normal, -1, ax[..., None])[..., 0] < 0
     orient = ax.to(torch.int32) * 2 + sgn.to(torch.int32)
     w = orient + (lvl.to(torch.int32) + 8) * 8
@@ -113,7 +113,7 @@ def query(state: SharcState, pos, normal, cam_pos,
     res = state.resolved[slot]
     count = res[..., 3]
     found = (key == checksum) & (count > 0.0)
-    radiance = res[..., :3] / torch.clamp_min(count, 1.0)[..., None]
+    radiance = res[..., :3] / geo.clip_min(count, 1.0)[..., None]
     return torch.where(found[..., None], radiance, 0.0), found
 
 
@@ -167,8 +167,8 @@ def resolve(state: SharcState, frame,
     acc, res = state.accum, state.resolved
     n_new, n_old = acc[..., 3], res[..., 3]
     n_sum = n_old + n_new
-    n_total = torch.clamp_max(n_sum, float(responsive_frames * 4))
-    scale = torch.where(n_sum > 0.0, n_total / torch.clamp_min(n_sum, 1.0), 0.0)
+    n_total = geo.clip_max(n_sum, float(responsive_frames * 4))
+    scale = torch.where(n_sum > 0.0, n_total / geo.clip_min(n_sum, 1.0), 0.0)
     resolved = torch.cat([(res[..., :3] + acc[..., :3]) * scale[..., None], n_total[..., None]],
                          dim=-1)
     frame_i = torch.as_tensor(frame, device=acc.device).to(torch.int32)

@@ -113,7 +113,7 @@ def _shadow_translucency_march(tctx: traversal.TraceContext, scene: Scene, cfg: 
         found = (hit["tri"] >= 0) & active
         tri_local = torch.clamp_min(hit["tri"] - tctx.tri_offset, 0).long()
         n_geom = geo.normalize(geo.cross(tr.e1[tri_local], tr.e2[tri_local]))
-        p = torch.pow(torch.clamp(1.0 - torch.abs(geo.dot3(n_geom, sdir)), 0.0, 1.0), 2.5)
+        p = torch.pow(geo.clip(1.0 - geo.absolute(geo.dot3(n_geom, sdir)), 0.0, 1.0), 2.5)
         factor = 0.9 * (1.0 - p)
         tint = scene.materials.base_color[tr.material[tri_local].long()]
         trans = trans * torch.where(found[..., None], factor[..., None] * tint, 1.0)
@@ -165,7 +165,7 @@ def trace_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Set
         trans_rgb = torch.where(off, torch.ones_like(trans_rgb), trans_rgb)
         lum = color.luminance(trans_rgb)
         gb["shadow"] = gb["shadow"] * lum
-        tint = trans_rgb / torch.clamp_min(lum, 1e-6)[..., None]
+        tint = trans_rgb / geo.clip_min(lum, 1e-6)[..., None]
         gb["shadow_tint"] = torch.where((lum > 1e-6)[..., None], tint, torch.ones_like(tint))
         hd = gb["shadow_hit_dist"]
         glass_t = torch.where(off, 0.0, glass_t)
@@ -200,7 +200,7 @@ def _max_acc(settings: Settings):
 def _reblur_settings(settings: Settings) -> reblur.ReblurSettings:
     max_acc = _max_acc(settings)
     return reblur.ReblurSettings(max_accumulated_frames=max_acc,
-                                 max_fast_accumulated_frames=torch.clamp_min(max_acc / 5.0, 1.0))
+                                 max_fast_accumulated_frames=geo.clip_min(max_acc / 5.0, 1.0))
 
 
 def _confidence_plane(cfg: RenderConfig, settings: Settings, history: History, probes: dict):
@@ -246,6 +246,9 @@ def image_frame_begin(cfg: RenderConfig, settings: Settings, cam: Camera,
     if (cfg.use_sharc and cfg.use_confidence and history.confidence is not None
             and probes is not None and n_local == cfg.n_pixels):
         conf_img, new_conf = _confidence_plane(cfg, settings, history, probes)
+        # a history-control signal (gPrevFrameConfidence), not a radiance
+        # path: detached from autograd, as the other history gates are
+        conf_img = conf_img.detach()
 
     # AREA_3X3 hit-distance reconstruction: probabilistic lobe selection
     # leaves the unsampled lobe's hit distance at 0

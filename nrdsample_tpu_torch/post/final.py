@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from nrdsample_tpu_torch.mathlib import color, rng
+from nrdsample_tpu_torch.mathlib import color, geometry as geo, rng
 
 #: the divider's colour, an 8-bit sRGB constant
 NV_GREEN = (118.0 / 255.0, 185.0 / 255.0, 0.0)
@@ -50,13 +50,13 @@ def final_pass(denoised: torch.Tensor, noisy: torch.Tensor | None = None, separa
         out = out * (1.0 - validation[..., 3:]) + validation[..., :3] * validation[..., 3:]
 
     if srgb:
-        out = color.linear_to_srgb(torch.clamp(out, 0.0, 1.0))
+        out = color.linear_to_srgb(geo.clip(out, 0.0, 1.0))
 
     # the divider column, in display space
     if noisy is not None:
-        on_divider = (torch.abs(x - sep_x) < 1.0) & torch.as_tensor(separator > 0.0, device=dev)
+        on_divider = (geo.absolute(x - sep_x) < 1.0) & torch.as_tensor(separator > 0.0, device=dev)
         out = torch.where(on_divider, torch.tensor(NV_GREEN, dtype=out.dtype, device=dev), out)
 
     if dither:
         out = out + dither_noise(h, w, frame_index, dev)
-    return torch.clamp(out, 0.0, 1.0)
+    return geo.clip(out, 0.0, 1.0)

@@ -7,14 +7,14 @@ from __future__ import annotations
 
 import torch
 
-from nrdsample_tpu_torch.mathlib import brdf
+from nrdsample_tpu_torch.mathlib import brdf, geometry as geo
 
 
 def hw_depth(view_z: torch.Tensor, near: float, far: float = 1e5) -> torch.Tensor:
     """Linear viewZ -> reversed-Z post-projection depth near / z in [0, 1]
     (an infinite-far projection)."""
-    z = torch.clamp_min(torch.abs(view_z), near)
-    return torch.clamp(near / z, 0.0, 1.0)
+    z = geo.clip_min(geo.absolute(view_z), near)
+    return geo.clip(near / z, 0.0, 1.0)
 
 
 def rr_guides(gb: dict, near: float, mv_type=None) -> dict:
@@ -30,7 +30,7 @@ def rr_guides(gb: dict, near: float, mv_type=None) -> dict:
     # f0 = lerp(0.04, baseColor, metalness), as GetMaterialProps
     f0 = 0.04 * (1.0 - metalness) + base_color * metalness
     view_dir = gb.get("view_dir", normal)
-    n_dot_v = torch.clamp(-torch.sum(normal * view_dir, dim=-1), 0.05, 1.0)
+    n_dot_v = geo.clip(-torch.sum(normal * view_dir, dim=-1), 0.05, 1.0)
     f_env = brdf.environment_term_rtg(f0, n_dot_v, roughness)
 
     albedo = base_color * (1.0 - metalness)

@@ -19,6 +19,7 @@ import os
 import torch
 
 from nrdsample_tpu_torch.denoise import common
+from nrdsample_tpu_torch.mathlib import geometry as geo
 from nrdsample_tpu_torch.post import conv
 
 WEIGHTS_PATH = os.path.join(os.path.dirname(__file__), "neural_rr.npz")
@@ -68,7 +69,7 @@ def apply(params: dict, noisy: torch.Tensor, guides: dict, prev: torch.Tensor,
     for i, (dy, dx) in enumerate(TAP_OFFS):
         filtered = filtered + common.shifted(noisy, dy * TAP_DIL, dx * TAP_DIL) * k[..., i:i + 1]
     out = filtered * (1.0 - alpha) + prev * alpha
-    return torch.clamp_min(out, 0.0)
+    return geo.clip_min(out, 0.0)
 
 
 def denoise(params: dict, noisy: torch.Tensor, guides: dict, mv_xy: torch.Tensor,

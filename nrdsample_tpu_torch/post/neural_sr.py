@@ -14,6 +14,7 @@ import os
 
 import torch
 
+from nrdsample_tpu_torch.mathlib import geometry as geo
 from nrdsample_tpu_torch.post import conv, upscale
 
 WEIGHTS_PATH = os.path.join(os.path.dirname(__file__), "neural_sr.npz")
@@ -37,7 +38,7 @@ def apply(params: dict, color: torch.Tensor, guides: dict, out_h: int, out_w: in
     d_up = upscale.lanczos_resize(guides["depth"], out_h, out_w)
     x = torch.cat([base, n_up, r_up[..., None], d_up[..., None]], dim=-1)
     residual = conv.conv_stack(x, params, (1,) * LAYERS)
-    return torch.clamp_min(base + residual, 0.0)
+    return geo.clip_min(base + residual, 0.0)
 
 
 def load_weights(path: str = WEIGHTS_PATH, device=None) -> dict:

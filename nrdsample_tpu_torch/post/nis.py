@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from nrdsample_tpu_torch.denoise.common import shifted
-from nrdsample_tpu_torch.mathlib import color
+from nrdsample_tpu_torch.mathlib import color, geometry as geo
 
 
 def sharpen(img: torch.Tensor, sharpness) -> torch.Tensor:
@@ -27,8 +27,8 @@ def sharpen(img: torch.Tensor, sharpness) -> torch.Tensor:
     # where the local dynamic range is already large
     eps = 1e-4
     contrast = (lmax - lmin) / (lmax + eps)
-    gain = torch.sqrt(torch.clamp(1.0 - contrast, 0.0, 1.0))
+    gain = torch.sqrt(geo.clip(1.0 - contrast, 0.0, 1.0))
     amount = (sharpness * 0.4 * gain)[..., None]
 
     laplacian = 4.0 * img - n - s - w_ - e
-    return torch.clamp_min(img + amount * laplacian, 0.0)
+    return geo.clip_min(img + amount * laplacian, 0.0)

@@ -1,6 +1,6 @@
 """Where the time of a frame goes on the card.
 
-    python -m nrdsample_tpu_torch.profile_frame [config] [--frames N] [--warmup N]
+    python -m nrdsample_tpu_torch.profile_frame [config] [--frames N] [--warmup N] [--train]
 
 Renders one configuration of ``pipeline/bench_configs.py`` (shaderballs512
 by default) through ``frame.render_frame`` on the CUDA card: ``--warmup``
@@ -14,6 +14,10 @@ the kernels with the most device time, then each of the port's hand-written
 kernels (``csrc/*.cu``) wherever it ranks; the idle share is 1 - device time /
 unprofiled wall time of the same run (the profiler's own host cost inflates
 the profiled wall time several-fold).
+
+``--train`` profiles ``pipeline/train.make_train_step`` on the configuration
+instead (a zero target, a fresh History each step): its backward's kernels
+run outside the two ranges and are counted as "outside the phases".
 """
 
 from __future__ import annotations
@@ -26,29 +30,41 @@ import time
 import torch
 
 from nrdsample_tpu_torch.ops import _kernels
-from nrdsample_tpu_torch.pipeline import bench_configs, frame
+from nrdsample_tpu_torch.pipeline import bench_configs, frame, train as train_mod
 
 PHASES = ("trace_frame", "image_frame")
 
 
-def profile(name: str, n_frames: int, warmup: int) -> list[str]:
+def profile(name: str, n_frames: int, warmup: int, train: bool = False) -> list[str]:
     ctx, scene, cam, cfg, settings = bench_configs.setup(name)
-    hist = frame.History.create(cfg)
+    state = {"hist": frame.History.create(cfg)}
+    if train:
+        step = train_mod.make_train_step(ctx, cfg, lr=2e-4 * 1024 / cfg.n_pixels)
+        target = torch.zeros((cfg.n_pixels, 3), device=state["hist"].frame_index.device)
+
+        def advance():
+            step(scene.materials, scene, cam, settings, state["hist"], target)
+    else:
+        def advance():
+            state["hist"] = frame.render_frame(ctx, scene, cam, cfg, settings, state["hist"])[1]
+
     for _ in range(warmup):
-        _, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        advance()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(n_frames):
-        _, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        advance()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    peak = torch.cuda.max_memory_allocated()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n_frames):
-            _, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+            advance()
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n_frames
 
@@ -72,14 +88,17 @@ def profile(name: str, n_frames: int, warmup: int) -> list[str]:
     busy_ms = sum(v[0] for v in by_name.values())
     n_kernels = len(kernels) / n_frames
     card = torch.cuda.get_device_name(0)
+    unit = "training step" if train else "frame"
     lines = [
-        f"{name} on {card}: {cfg.width}x{cfg.height}, denoiser {cfg.denoiser.name}",
-        f"wall {wall_ms:.3f} ms/frame over {n_frames} unprofiled frames after {warmup} warm-up; "
-        f"profiled wall {prof_wall_ms:.3f} ms/frame",
-        f"device busy {busy_ms:.3f} ms/frame, idle share {1.0 - busy_ms / wall_ms:.3f} of the "
-        f"unprofiled wall time, {n_kernels:.0f} kernels/frame",
-        "device ms/frame by phase: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items())),
-        "kernels by device time (ms/frame, launches/frame, share of busy):",
+        f"{name} on {card}: {cfg.width}x{cfg.height}, denoiser {cfg.denoiser.name}"
+        + (", make_train_step" if train else ""),
+        f"wall {wall_ms:.3f} ms/{unit} over {n_frames} unprofiled {unit}s after {warmup} "
+        f"warm-up; profiled wall {prof_wall_ms:.3f} ms/{unit}; peak memory {peak} B",
+        f"device busy {busy_ms:.3f} ms/{unit}, idle share {1.0 - busy_ms / wall_ms:.3f} of the "
+        f"unprofiled wall time, {n_kernels:.0f} kernels/{unit}",
+        f"device ms/{unit} by phase: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items())),
+        f"kernels by device time (ms/{unit}, launches/{unit}, share of busy):",
     ]
 
     def row(k, ms, n):
@@ -105,10 +124,12 @@ def main() -> None:
                    choices=sorted(bench_configs.CONFIGS))
     p.add_argument("--frames", type=int, default=4)
     p.add_argument("--warmup", type=int, default=3)
+    p.add_argument("--train", action="store_true",
+                   help="profile a training step (forward and backward) instead of a frame")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device: the profile is of the card")
-    print("\n".join(profile(args.config, args.frames, args.warmup)))
+    print("\n".join(profile(args.config, args.frames, args.warmup, args.train)))
 
 
 if __name__ == "__main__":

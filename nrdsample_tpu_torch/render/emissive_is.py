@@ -82,10 +82,20 @@ def build_emissive_set(scene: Scene, emission_scale=1.0, clusters: dict | None =
     return out
 
 
+def _detached(em: dict) -> dict:
+    return {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in em.items()}
+
+
 def light_probe(em: dict, origin: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
     """CastLightRay_AnyHit: intensity of the nearest emissive surface along
     each ray, 0 on a miss. CUDA rays launch the probe kernel (or raise); CPU
-    rays take its plain version."""
+    rays take its plain version.
+
+    The result carries no gradient: the rays, the emitters and their
+    intensity are detached before either path, on both devices. The
+    reservoir uses the intensities only for discrete choices and for a
+    multiplier that the JAX package stops the gradient of."""
+    em, origin, direction = _detached(em), origin.detach(), direction.detach()
     if origin.device.type == "cuda":
         return emissive_probe.light_probe_cuda(em, origin, direction)
     if origin.device.type == "cpu":
@@ -97,18 +107,19 @@ def light_probe(em: dict, origin: torch.Tensor, direction: torch.Tensor) -> torc
 
 def light_probe_batch(em: dict, origin: torch.Tensor, dir_planes, active: torch.Tensor) -> torch.Tensor:
     """All K candidates in one launch: origin (R, 3), dir_planes 3 x (K, R),
-    active (K, R) -> intensities (K, R). With an emissive ClusterSet the
-    probe is a closest hit through the packet kernel (inactive candidates
-    trace too, and are masked after)."""
-    dx, dy, dz = dir_planes
+    active (K, R) -> intensities (K, R), without a gradient (see
+    ``light_probe``). With an emissive ClusterSet the probe is a closest hit
+    through the packet kernel (inactive candidates trace too, and are
+    masked after)."""
+    dx, dy, dz = (p.detach() for p in dir_planes)
     k, r = dx.shape
     d_flat = torch.stack([dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)], dim=1)
-    o_flat = origin[None].expand(k, r, 3).reshape(k * r, 3)
+    o_flat = origin.detach()[None].expand(k, r, 3).reshape(k * r, 3)
     if "clusters" in em:
         res = packet.closest_hit_packet_cuda(em["clusters"], o_flat, d_flat, sort=True,
                                              need_uv=False)
         hit = res["tri"] >= 0
-        li = torch.where(hit, em["cl_lum"][torch.clamp_min(res["tri"], 0).long()], 0.0)
+        li = torch.where(hit, em["cl_lum"].detach()[torch.clamp_min(res["tri"], 0).long()], 0.0)
         return li.reshape(k, r) * active
     return light_probe(em, o_flat, d_flat).reshape(k, r) * active
 
@@ -126,8 +137,8 @@ def reservoir_sample_direction(props: dict, em: dict, is_diffuse: torch.Tensor,
 
     k_eff = torch.full(x.shape[:-1], float(n_candidates), dtype=x.dtype, device=x.device)
     if spec_k_scale is not None:
-        k_spec = torch.ceil(n_candidates * torch.clamp(spec_k_scale, 0.0, 1.0))
-        k_eff = torch.where(is_diffuse, k_eff, torch.clamp_min(k_spec, 1.0))
+        k_spec = torch.ceil(n_candidates * geo.clip(spec_k_scale, 0.0, 1.0))
+        k_eff = torch.where(is_diffuse, k_eff, geo.clip_min(k_spec, 1.0))
 
     # phase 1: all candidate directions, one (R,) plane per component and k
     planes = [[] for _ in range(6)]
@@ -156,12 +167,12 @@ def reservoir_sample_direction(props: dict, em: dict, is_diffuse: torch.Tensor,
         cand = torch.stack([cx[k], cy[k], cz[k]], dim=-1)
         sum_i = sum_i + li
         take_rnd = rng.uniform1(pixel_idx, frame, dim + 3 * k + 2)
-        take = (li > 0.0) & (take_rnd < li / torch.clamp_min(sum_i, 1e-9))
+        take = (li > 0.0) & (take_rnd < li / geo.clip_min(sum_i, 1e-9))
         pick = take if k > 0 else torch.ones_like(take)
         ray_local = torch.where(pick[..., None], cand, ray_local)
         chosen_i = torch.where(take, li, chosen_i)
 
-    mult = sum_i / (chosen_i * torch.clamp_min(k_eff, 1.0))
-    mult = torch.clamp_max(mult, 8.0)
+    mult = sum_i / (chosen_i * geo.clip_min(k_eff, 1.0))
+    mult = geo.clip_max(mult, 8.0)
     mult = torch.where(sum_i > 0.0, mult, 1.0)
     return ray_local, mult.detach()

@@ -91,7 +91,7 @@ def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.T
         fm = torch.as_tensor(forced_material).to(torch.int32)
         gypsum = (fm == int(cfgmod.ForcedMaterial.GYPSUM)) & ~miss
         cobalt = (fm == int(cfgmod.ForcedMaterial.COBALT)) & ~miss
-        prod = torch.clamp(base_color[..., 0] * base_color[..., 1] * base_color[..., 2], 0.0, 1.0)
+        prod = geo.clip(base_color[..., 0] * base_color[..., 1] * base_color[..., 2], 0.0, 1.0)
         cobalt_rough = torch.pow(prod, 1.0 / 3.0)
         roughness = torch.where(gypsum, 1.0, torch.where(cobalt, cobalt_rough, roughness))
         metalness = torch.where(gypsum, 0.0, torch.where(cobalt, 1.0, metalness))
@@ -137,6 +137,6 @@ def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.T
 def apply_overrides(props: dict, roughness_override, metalness_override) -> dict:
     """Settings-driven roughness/metalness overrides."""
     out = dict(props)
-    out["roughness"] = torch.clamp(props["roughness"] + roughness_override, 0.0, 1.0)
-    out["metalness"] = torch.clamp(props["metalness"] + metalness_override, 0.0, 1.0)
+    out["roughness"] = geo.clip(props["roughness"] + roughness_override, 0.0, 1.0)
+    out["metalness"] = geo.clip(props["metalness"] + metalness_override, 0.0, 1.0)
     return out

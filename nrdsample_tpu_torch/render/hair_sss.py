@@ -30,17 +30,17 @@ def hair_bcsdf_eval(wi: torch.Tensor, wo: torch.Tensor, tangent: torch.Tensor,
     """Far-field hair BCSDF (RGB) for the light direction wi and the view
     direction wo (both pointing away from the surface); tangent is the
     fibre's direction."""
-    sin_ti = torch.clamp(geo.dot3(wi, tangent), -1.0, 1.0)
-    sin_to = torch.clamp(geo.dot3(wo, tangent), -1.0, 1.0)
+    sin_ti = geo.clip(geo.dot3(wi, tangent), -1.0, 1.0)
+    sin_to = geo.clip(geo.dot3(wo, tangent), -1.0, 1.0)
     theta_h = 0.5 * (torch.asin(sin_ti) + torch.asin(sin_to))
 
     # azimuth: both directions projected onto the fibre's normal plane
     wi_p = geo.normalize(wi - sin_ti[..., None] * tangent)
     wo_p = geo.normalize(wo - sin_to[..., None] * tangent)
-    cos_phi = torch.clamp(geo.dot3(wi_p, wo_p), -1.0, 1.0)
+    cos_phi = geo.clip(geo.dot3(wi_p, wo_p), -1.0, 1.0)
 
     tilt = math.radians(HAIR_CUTICLE_TILT_DEG)
-    beta = torch.clamp(roughness, 0.05, 1.0) * 0.3 + 0.05   # longitudinal stddev
+    beta = geo.clip(roughness, 0.05, 1.0) * 0.3 + 0.05   # longitudinal stddev
 
     # R is a grey specular, TT and TRT carry the pigment once and twice
     tints = (torch.ones_like(base_color) * 0.25, base_color, base_color * base_color)
@@ -51,7 +51,7 @@ def hair_bcsdf_eval(wi: torch.Tensor, wo: torch.Tensor, tangent: torch.Tensor,
                                               HAIR_LOBE_GAINS, tints, azimuthal):
         m = _gaussian(theta_h - shift * tilt, beta * width)
         out = out + gain * (m * n_az)[..., None] * tint
-    cos_theta_o = torch.sqrt(torch.clamp(1.0 - sin_to * sin_to, 1e-4, 1.0))
+    cos_theta_o = torch.sqrt(geo.clip(1.0 - sin_to * sin_to, 1e-4, 1.0))
     return out / cos_theta_o[..., None]
 
 
@@ -60,14 +60,14 @@ def hair_sample(rnd: torch.Tensor, wo: torch.Tensor, tangent: torch.Tensor,
     """A scattered direction: a longitudinal Gaussian (Box-Muller) around the
     reflected inclination and a uniform azimuth about the fibre. rnd (..., 2)
     uniforms. Returns (direction, weight 1)."""
-    sin_to = torch.clamp(geo.dot3(wo, tangent), -1.0, 1.0)
+    sin_to = geo.clip(geo.dot3(wo, tangent), -1.0, 1.0)
     theta_o = torch.asin(sin_to)
-    beta = torch.clamp(roughness, 0.05, 1.0) * 0.3 + 0.05
-    r1 = torch.clamp(rnd[..., 0], 1e-6, 1.0 - 1e-6)
+    beta = geo.clip(roughness, 0.05, 1.0) * 0.3 + 0.05
+    r1 = geo.clip(rnd[..., 0], 1e-6, 1.0 - 1e-6)
     r2 = rnd[..., 1]
     g = torch.sqrt(-2.0 * torch.log(r1)) * torch.cos(2.0 * math.pi * r2)
     theta_i = -theta_o + math.radians(HAIR_CUTICLE_TILT_DEG) + g * beta
-    theta_i = torch.clamp(theta_i, -0.49 * math.pi, 0.49 * math.pi)
+    theta_i = geo.clip(theta_i, -0.49 * math.pi, 0.49 * math.pi)
 
     phi = 2.0 * math.pi * rnd[..., 1]
     b1, b2 = geo.orthonormal_basis(tangent)
@@ -80,7 +80,7 @@ def hair_sample(rnd: torch.Tensor, wo: torch.Tensor, tangent: torch.Tensor,
 def burley_profile(r: torch.Tensor, d) -> torch.Tensor:
     """Burley's normalized diffusion R(r), which integrates to 1 over the
     plane."""
-    r = torch.clamp_min(r, 1e-5)
+    r = geo.clip_min(r, 1e-5)
     return (torch.exp(-r / d) + torch.exp(-r / (3.0 * d))) / (8.0 * math.pi * d * r)
 
 
@@ -89,9 +89,9 @@ def sss_wrap_diffuse(n_dot_l: torch.Tensor, base_color: torch.Tensor,
     """The subsurface wrap term that replaces the hard cosine on FLAG_SKIN:
     light wraps round the terminator in proportion to the mean free path,
     tinted by the albedo squared."""
-    w = torch.clamp(torch.as_tensor(scatter_distance, dtype=n_dot_l.dtype,
+    w = geo.clip(torch.as_tensor(scatter_distance, dtype=n_dot_l.dtype,
                                     device=n_dot_l.device), 0.0, 1.0)
-    wrap = torch.clamp((n_dot_l + w) / (1.0 + w), 0.0, 1.0)
-    hard = torch.clamp(n_dot_l, 0.0, 1.0)
+    wrap = geo.clip((n_dot_l + w) / (1.0 + w), 0.0, 1.0)
+    hard = geo.clip(n_dot_l, 0.0, 1.0)
     return hard[..., None] * torch.ones_like(base_color) + (wrap - hard)[..., None] * (
         base_color * base_color)

@@ -36,7 +36,7 @@ class L1History:
 
 
 def _linear_step(a, b, x):
-    return torch.clamp((x - a) / (b - a), 0.0, 1.0)
+    return geo.clip((x - a) / (b - a), 0.0, 1.0)
 
 
 def reproject_irradiance(hist: L1History, cam, props: dict, pixel_idx, width: int,
@@ -49,11 +49,11 @@ def reproject_irradiance(hist: L1History, cam, props: dict, pixel_idx, width: in
     data_z = data[..., 0]
     l_diff = data[..., 1:4]
     l_spec = data[..., 4:7]
-    prev_view_z = torch.abs(data_z)
+    prev_view_z = geo.absolute(data_z)
 
-    view_z = torch.abs(geo.affine_transform(cam.world_to_view_prev, x)[..., 2])
+    view_z = geo.absolute(geo.affine_transform(cam.world_to_view_prev, x)[..., 2])
     err = (view_z - prev_view_z) * geo.positive_rcp(torch.maximum(view_z, prev_view_z))
-    weight = _linear_step(0.01, 0.005, torch.abs(err))
+    weight = _linear_step(0.01, 0.005, geo.absolute(err))
 
     # soft screen-edge fade
     f = _linear_step(0.0, 0.1, uv) * _linear_step(1.0, 0.9, uv)
@@ -69,7 +69,7 @@ def reproject_irradiance(hist: L1History, cam, props: dict, pixel_idx, width: in
     px = (pixel_idx % width).to(torch.float32) + 0.5
     py = torch.div(pixel_idx, width, rounding_mode="floor").to(torch.float32) + 0.5
     dxy = (uv_cur - torch.stack([px / width, py / height], -1)) * size
-    d = torch.sqrt(torch.clamp_min(dxy[..., 0] * dxy[..., 0] + dxy[..., 1] * dxy[..., 1], 1e-30))
+    d = torch.sqrt(geo.clip_min(dxy[..., 0] * dxy[..., 0] + dxy[..., 1] * dxy[..., 1], 1e-30))
     weight = weight * _linear_step(1.0, 3.0, d)
 
     weight = weight * ~props["miss"]
@@ -77,7 +77,7 @@ def reproject_irradiance(hist: L1History, cam, props: dict, pixel_idx, width: in
 
     ok = torch.isfinite(l_diff).all(-1) & torch.isfinite(l_spec).all(-1)
     weight = weight * ok
-    fade = torch.clamp(weight / 0.001, 0.0, 1.0)[..., None]
+    fade = geo.clip(weight / 0.001, 0.0, 1.0)[..., None]
     return l_diff * fade, l_spec * fade, weight
 
 
@@ -86,7 +86,7 @@ def radiance_from_previous_frame(hist: L1History, cam, props: dict, pixel_idx, w
     """GetRadianceFromPreviousFrame: (L (N, 3), weight (N,))."""
     l_diff, l_spec, w = reproject_irradiance(hist, cam, props, pixel_idx, width, height,
                                              sun_dir, prev_frame_confidence)
-    norm_curv = torch.clamp(torch.sqrt(torch.abs(props["curvature"]) + 1e-12) / 2.5, 0.0, 1.0)
+    norm_curv = geo.clip(torch.sqrt(geo.absolute(props["curvature"]) + 1e-12) / 2.5, 0.0, 1.0)
     r = props["roughness"]
     f = 1.0 - torch.exp2(-200.0 * (r * r))
     spec_conf = f * geo.pow01(r, 0.5)
@@ -98,7 +98,7 @@ def radiance_from_previous_frame(hist: L1History, cam, props: dict, pixel_idx, w
     w = w * (1.0 + (spec_conf - 1.0) * spec_w)
 
     l_sum = l_diff + l_spec * spec_conf[..., None]
-    l_sum = l_sum * torch.clamp(w / 0.05, 0.0, 1.0)[..., None]
+    l_sum = l_sum * geo.clip(w / 0.05, 0.0, 1.0)[..., None]
     return l_sum, w
 
 
@@ -107,6 +107,6 @@ def update_history(cam, composed_diff, composed_spec, view_z, normal, sun_dir,
     """Next frame's L1 state from this frame's composed signals (flat (N, ...)
     planes)."""
     sgn = torch.where(geo.dot3(normal, sun_dir) >= 0, 1.0, -1.0)
-    packed = torch.cat([(torch.abs(view_z) * sgn)[..., None], composed_diff.reshape(-1, 3),
+    packed = torch.cat([(geo.absolute(view_z) * sgn)[..., None], composed_diff.reshape(-1, 3),
                         composed_spec.reshape(-1, 3)], dim=-1).reshape(height, width, 7)
     return L1History(packed=packed, valid=torch.tensor(1, dtype=torch.int32, device=packed.device))

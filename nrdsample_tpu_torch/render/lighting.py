@@ -22,9 +22,9 @@ def sun_intensity(v: torch.Tensor, sun_dir: torch.Tensor, tan_angular_radius,
         return torch.zeros(v.shape[:-1] + (3,), dtype=v.dtype, device=v.device)
     b = geo.dot3(v, sun_dir)
     d = geo.length(v - sun_dir * b[..., None])
-    glow = torch.clamp(1.015 - d, 0.0, 1.0)
+    glow = geo.clip(1.015 - d, 0.0, 1.0)
     glow = glow * (b * 0.5 + 0.5) * 0.6
-    a = geo.sqrt01(1.0 - b * b) / torch.where(torch.abs(b) < 1e-6, 1e-6, b)
+    a = geo.sqrt01(1.0 - b * b) / torch.where(geo.absolute(b) < 1e-6, 1e-6, b)
     sun = 1.0 - geo.smoothstep(tan_angular_radius * 0.9, tan_angular_radius * 1.66 + 0.01, a)
     sun = sun * (b > 0.0)
     sun = sun * (1.0 - geo.pow01(1.0 - v[..., 2], 4.85))
@@ -46,14 +46,14 @@ def sky_intensity(v: torch.Tensor, sun_dir: torch.Tensor, tan_angular_radius,
     """Sky radiance along v (includes the sun disk)."""
     if white_furnace:
         return torch.ones(v.shape[:-1] + (3,), dtype=v.dtype, device=v.device)
-    atmosphere = geo.sqrt01(1.0 - torch.clamp(v[..., 2], 0.0, 1.0))
+    atmosphere = geo.sqrt01(1.0 - geo.clip(v[..., 2], 0.0, 1.0))
     scatter = geo.pow01(sun_dir[2], 1.0 / 15.0)
-    scatter = 1.0 - torch.clamp(scatter, 0.8, 1.0)
+    scatter = 1.0 - geo.clip(scatter, 0.8, 1.0)
     scatter_color = _vec3([1.0, 1.0, 1.0], v) * (1 - scatter) + _vec3([1.5, 0.45, 0.0], v) * scatter
     base = _vec3([0.2, 0.4, 0.8], v)
     w = (atmosphere / 1.3)[..., None]
     sky = base * (1 - w) + scatter_color * w
-    sky = sky * torch.clamp(1.0 + sun_dir[2], 0.0, 1.0)
+    sky = sky * geo.clip(1.0 + sun_dir[2], 0.0, 1.0)
     ground = 0.5 + 0.5 * geo.smoothstep(-1.0, 0.0, v[..., 2])
     sky = sky * ground[..., None]
     return color.from_gamma(sky) * cfg.SKY_INTENSITY + sun_intensity(v, sun_dir, tan_angular_radius)
@@ -75,7 +75,7 @@ def direct_sun_lighting(n, v, base_color, metalness, roughness, sun_dir,
     surfaces the subsurface wrap diffuse."""
     csun = sun_intensity(sun_dir[None, :], sun_dir, tan_angular_radius, white_furnace)[0]
     csky = sky_intensity(-v, sun_dir, tan_angular_radius, white_furnace)
-    n_dot_l = torch.clamp(geo.dot3(n, sun_dir), 0.0, 1.0)
+    n_dot_l = geo.clip(geo.dot3(n, sun_dir), 0.0, 1.0)
     shadow_fade = geo.smoothstep(0.03, 0.1, n_dot_l)
 
     albedo, f0 = brdf.base_color_to_f0_albedo(base_color, metalness)
@@ -84,15 +84,15 @@ def direct_sun_lighting(n, v, base_color, metalness, roughness, sun_dir,
     cimp = cimp * geo.smoothstep(-0.01, 0.05, sun_dir[2])
 
     h = geo.normalize(sun_dir + v)
-    n_dot_h = torch.clamp(geo.dot3(n, h), 0.0, 1.0)
-    v_dot_h = torch.clamp(geo.dot3(v, h), 0.0, 1.0)
-    n_dot_v = torch.abs(geo.dot3(n, v))
+    n_dot_h = geo.clip(geo.dot3(n, h), 0.0, 1.0)
+    v_dot_h = geo.clip(geo.dot3(v, h), 0.0, 1.0)
+    n_dot_v = geo.absolute(geo.dot3(n, v))
 
     alpha = roughness * roughness
     d = sampling.ggx_d(n_dot_h, alpha)
     g_vis = brdf.smith_g2_correlated(n_dot_v, n_dot_l, alpha)
     f = brdf.fresnel_schlick(f0, v_dot_h)
-    cspec = torch.clamp(f * (d * g_vis * n_dot_l)[..., None], 0.0, 1.0)
+    cspec = geo.clip(f * (d * g_vis * n_dot_l)[..., None], 0.0, 1.0)
     cdiff = (csun * albedo) * n_dot_l[..., None] / sampling.PI
 
     lighting = cspec * cimp + cdiff * (1.0 - f)
@@ -107,7 +107,7 @@ def direct_sun_lighting(n, v, base_color, metalness, roughness, sun_dir,
                                                         base_color) / sampling.PI
         lighting = torch.where(is_skin[..., None], sss + cspec * cimp, lighting)
         bcsdf = hair_sss.hair_bcsdf_eval(sun_dir, v, tangent, base_color, roughness)
-        hair_l = csun * bcsdf * torch.clamp(geo.dot3(n, sun_dir) * 0.5 + 0.5, 0.0, 1.0)[..., None]
+        hair_l = csun * bcsdf * geo.clip(geo.dot3(n, sun_dir) * 0.5 + 0.5, 0.0, 1.0)[..., None]
         lighting = torch.where(is_hair[..., None], hair_l, lighting)
     return lighting
 

@@ -64,9 +64,9 @@ def _delta_walk(ctxs: traversal.SceneContexts, scene: Scene, origin, direction, 
         n_geom = torch.where(geo.dot3(n_geom, d)[..., None] > 0, -n_geom, n_geom)   # against the ray
         ior = scene.materials.ior[tr.material[tri_local].long()]
         eta = torch.where(inside, 1.0 / ior, ior)
-        f = _fresnel_dielectric(torch.abs(geo.dot3(d, n_geom)), eta)
+        f = _fresnel_dielectric(geo.absolute(geo.dot3(d, n_geom)), eta)
         reflect_now = rng.uniform1(pixel_idx, frame, 820_000 + 1000 * bounce) < f
-        ray_refr = geo.refract(d, n_geom, 1.0 / torch.clamp_min(eta, 1e-6))
+        ray_refr = geo.refract(d, n_geom, 1.0 / geo.clip_min(eta, 1e-6))
         reflect_now = reflect_now | (geo.length(ray_refr) < 0.5)   # total internal reflection
         new_d = torch.where(reflect_now[..., None], geo.reflect(d, n_geom), geo.normalize(ray_refr))
         x = o + d * hit_t["t"][..., None]
@@ -116,7 +116,7 @@ def _trace_probe_paths(ctxs, scene: Scene, cam: Camera, cfg: RenderConfig, setti
     probe_vz = cam_mod.world_to_view_z(cam, props["x"])
     probe_n = props["n"]
 
-    exposure = torch.clamp_min(settings.exposure * 1e-2, 1e-3)
+    exposure = geo.clip_min(settings.exposure * 1e-2, 1e-3)
     grad_extra = torch.zeros(sidx.shape, dtype=cfg.dtype, device=dev)
     path_w = grad_extra + 1.0
     verts = []
@@ -146,7 +146,7 @@ def _trace_probe_paths(ctxs, scene: Scene, cam: Camera, cfg: RenderConfig, setti
                         cfg, settings)
         # a static origin hitting a dynamic object adds an AO-style hitT term
         dyn_hit = ((props["flags"] & cfgmod.FLAG_STATIC) == 0) & ~props["miss"]
-        ao = torch.sqrt(torch.clamp(props["t"] / cfgmod.SHARC_GRADIENT_HITDIST_SCALE, 0.0, 1.0))
+        ao = torch.sqrt(geo.clip(props["t"] / cfgmod.SHARC_GRADIENT_HITDIST_SCALE, 0.0, 1.0))
         term = (1.0 - ao) * torch.where(static_origin & dyn_hit & alive, 1.0, 0.0)
         grad_extra = grad_extra + term * path_w * 25.0 / exposure
         path_w = path_w * color.luminance(seg_w)

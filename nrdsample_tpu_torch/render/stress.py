@@ -15,7 +15,7 @@ import torch
 
 from nrdsample_tpu_torch import config
 from nrdsample_tpu_torch.config import RenderConfig, Settings
-from nrdsample_tpu_torch.mathlib import rng
+from nrdsample_tpu_torch.mathlib import geometry as geo, rng
 
 GARBAGE = float("nan")
 
@@ -48,7 +48,7 @@ def apply_stress_tests(gb: dict, cfg: RenderConfig, settings: Settings,
         for k in ("diff_radiance", "spec_radiance", "direct_lighting", "emission", "view_z"):
             out[k] = _poison(out[k], outside)
     if cfg.use_inf_stress_test:
-        far = torch.abs(gb["view_z"]) > DENOISING_RANGE
+        far = geo.absolute(gb["view_z"]) > DENOISING_RANGE
         for k in ("diff_radiance", "spec_radiance"):
             out[k] = _poison(out[k], far)
     if cfg.use_firefly_test:

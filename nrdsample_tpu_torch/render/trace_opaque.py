@@ -35,11 +35,11 @@ def _shadow_rnd(cfg: RenderConfig, pixel_idx, frame, dim: int):
 def estimate_diffuse_probability(props: dict, use_magic_boost: bool = False):
     """EstimateDiffuseProbability (RaytracingShared.hlsli:980-1009)."""
     albedo, f0 = brdf.base_color_to_f0_albedo(props["base_color"], props["metalness"])
-    n_dot_v = torch.abs(geo.dot3(props["n"], props["v"]))
+    n_dot_v = geo.absolute(geo.dot3(props["n"], props["v"]))
     f_env = brdf.environment_term_rtg(f0, n_dot_v, props["roughness"])
     lum_spec = color.luminance(f_env)
     lum_diff = color.luminance(albedo * (1.0 - f_env))
-    p = lum_diff / torch.clamp_min(lum_diff + lum_spec, 1e-6)
+    p = lum_diff / geo.clip_min(lum_diff + lum_spec, 1e-6)
     if use_magic_boost:
         r = props["roughness"]
         f = 1.0 - torch.exp2(-200.0 * (r * r))
@@ -99,10 +99,10 @@ def generate_ray_and_update_throughput(props: dict, throughput: torch.Tensor,
         is_transmission = torch.zeros_like(is_diffuse)
 
     albedo, f0 = brdf.base_color_to_f0_albedo(props["base_color"], props["metalness"])
-    n_dot_l = torch.clamp(ray_local[..., 2], 0.0, 1.0)
+    n_dot_l = geo.clip(ray_local[..., 2], 0.0, 1.0)
     h_full = geo.normalize(v_local + ray_local)
-    v_dot_h = torch.abs(geo.dot3(v_local, h_full))
-    n_dot_v = torch.abs(v_local[..., 2])
+    v_dot_h = geo.absolute(geo.dot3(v_local, h_full))
+    n_dot_v = geo.absolute(v_local[..., 2])
 
     k_diff = _burley_diffuse_term(props["roughness"], n_dot_l, n_dot_v, v_dot_h)
     if use_translucency:
@@ -125,12 +125,13 @@ def generate_ray_and_update_throughput(props: dict, throughput: torch.Tensor,
     n_geom = props["n_geom"]
     n_dot_l_geom = geo.dot3(n_geom, ray)
     bad = (n_dot_l_geom < 0.0) & ~is_transmission
-    rough_threshold = torch.clamp(props["roughness"] / 0.15, 0.0, 1.0)
+    rough_threshold = geo.clip(props["roughness"] / 0.15, 0.0, 1.0)
     kill_rnd = rng.uniform1(pixel_idx, frame, dim + 1)
     kill = bad & (is_diffuse | (kill_rnd < rough_threshold))
     throughput = torch.where(kill[..., None], 0.0, throughput)
-    b = torch.abs(geo.dot3(n_geom, n)) * 0.99
-    patched = geo.normalize(ray + n_geom * (torch.abs(n_dot_l_geom) * geo.positive_rcp(b))[..., None])
+    b = geo.absolute(geo.dot3(n_geom, n)) * 0.99
+    patched = geo.normalize(
+        ray + n_geom * (geo.absolute(n_dot_l_geom) * geo.positive_rcp(b))[..., None])
     patch = bad & ~kill
     ray = torch.where(patch[..., None], patched, ray)
     shading_n = torch.where(patch[..., None], geo.normalize(v + ray), n)
@@ -156,7 +157,7 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
     unproject = cam_mod.unproject_scale(cam, cfg.height)
 
     albedo0, f00 = brdf.base_color_to_f0_albedo(props0["base_color"], props0["metalness"])
-    n_dot_v0 = torch.abs(geo.dot3(props0["n"], props0["v"]))
+    n_dot_v0 = geo.absolute(geo.dot3(props0["n"], props0["v"]))
     f_env0 = brdf.environment_term_rtg(f00, n_dot_v0, props0["roughness"])
     diff_factor0 = albedo0 * (1.0 - f_env0) + 0.001
     spec_factor0 = f_env0 + 0.001
@@ -194,7 +195,7 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         for bounce in range(1, cfg.bounce_num + 1):
             dim_base = 10_000 * (path + 1) + 100 * bounce
             diffuse_prob = estimate_diffuse_probability(props)
-            diffuse_prob = (diffuse_prob != 0.0).to(f32) * torch.clamp(
+            diffuse_prob = (diffuse_prob != 0.0).to(f32) * geo.clip(
                 diffuse_prob, settings.min_probability, 1.0 - settings.min_probability
             )
             rnd_lobe = rng.uniform1(pixel_idx, frame, dim_base)
@@ -205,7 +206,7 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
             is_diffuse = rnd_lobe < diffuse_prob
             if cfg.tracing_mode == TracingMode.FULL_PROBABILISTIC or bounce > 1:
                 sel_pdf = torch.where(is_diffuse, diffuse_prob, 1.0 - diffuse_prob)
-                throughput = throughput / torch.clamp_min(sel_pdf, 1e-6)[..., None]
+                throughput = throughput / geo.clip_min(sel_pdf, 1e-6)[..., None]
             elif cfg.tracing_mode == TracingMode.HALF:
                 is_diffuse = rng.checkerboard(px, py, frame).to(torch.bool)
             else:  # FULL: alternate paths
@@ -277,7 +278,7 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                 rt = torch.where(is_diffuse, 1.0, props["roughness"])
                 lobe_tan = rt * rt / (1.0 + rt * rt)
                 footprint = props["t"] * lobe_tan * 2.0
-                footprint_norm = torch.clamp(footprint / torch.clamp_min(vs, 1e-6), 0.0, 1.0)
+                footprint_norm = geo.clip(footprint / geo.clip_min(vs, 1e-6), 0.0, 1.0)
                 if bounce == cfg.bounce_num:
                     gate = torch.ones_like(is_diffuse)
                 else:
@@ -378,9 +379,9 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         emi0 = emi0 / (2.0 * math.pi)
         diff_radiance = diff_radiance + emi0
         spec_radiance = spec_radiance + emi0
-    diff_norm = torch.where(diff_path_num > 0, 1.0 / torch.clamp_min(diff_path_num, 1.0), 0.0)
+    diff_norm = torch.where(diff_path_num > 0, 1.0 / geo.clip_min(diff_path_num, 1.0), 0.0)
     spec_cnt = path_num - diff_path_num
-    spec_norm = torch.where(spec_cnt > 0, 1.0 / torch.clamp_min(spec_cnt, 1.0), 0.0)
+    spec_norm = torch.where(spec_cnt > 0, 1.0 / geo.clip_min(spec_cnt, 1.0), 0.0)
     return {
         "diff_radiance": diff_radiance,
         "spec_radiance": spec_radiance,
@@ -432,7 +433,7 @@ def psr_walk(ctx, scene, cfg: RenderConfig, settings: Settings, cam: Camera, pro
         house = eye - 2.0 * n_s[:, :, None] * n_s[:, None, :]
         mirror_mat = torch.where(delta[:, None, None], torch.bmm(house, mirror_mat), mirror_mat)
         _, f0 = brdf.base_color_to_f0_albedo(props["base_color"], props["metalness"])
-        f = brdf.fresnel_schlick(f0, torch.abs(geo.dot3(props["v"], props["n"])))
+        f = brdf.fresnel_schlick(f0, geo.absolute(geo.dot3(props["v"], props["n"])))
         ray = geo.reflect(-props["v"], props["n"])
         vz = cam_mod.world_to_view_z(cam, props["x"])
         xo = geo.offset_ray(props["x"], props["n_geom"], vz, unproject, cfgmod.PT_BOUNCE_RAY_OFFSET)

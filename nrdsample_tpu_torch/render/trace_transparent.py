@@ -38,13 +38,13 @@ def _closest_hit_world(ctxs: traversal.SceneContexts, o, d, t_max=traversal.T_MA
 def _fresnel_dielectric(cos_i, eta):
     """Exact dielectric Fresnel reflectance for unpolarized light; eta =
     n_t / n_i. 1 on total internal reflection."""
-    cos_i = torch.clamp(torch.abs(cos_i), 0.0, 1.0)
-    sin2_t = (1.0 - cos_i * cos_i) / torch.clamp_min(eta * eta, 1e-6)
-    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0) + 1e-12)
-    rs = (cos_i - eta * cos_t) / torch.clamp_min(cos_i + eta * cos_t, 1e-9)
-    rp = (eta * cos_i - cos_t) / torch.clamp_min(eta * cos_i + cos_t, 1e-9)
+    cos_i = geo.clip(geo.absolute(cos_i), 0.0, 1.0)
+    sin2_t = (1.0 - cos_i * cos_i) / geo.clip_min(eta * eta, 1e-6)
+    cos_t = torch.sqrt(geo.clip_min(1.0 - sin2_t, 0.0) + 1e-12)
+    rs = (cos_i - eta * cos_t) / geo.clip_min(cos_i + eta * cos_t, 1e-9)
+    rp = (eta * cos_i - cos_t) / geo.clip_min(eta * cos_i + cos_t, 1e-9)
     f = 0.5 * (rs * rs + rp * rp)
-    return torch.where(sin2_t > 1.0, 1.0, torch.clamp(f, 0.0, 1.0))
+    return torch.where(sin2_t > 1.0, 1.0, geo.clip(f, 0.0, 1.0))
 
 
 def _decode(scene: Scene, hit, o, d, sun_dir, tan_sun, cfg: RenderConfig, settings: Settings):
@@ -91,7 +91,7 @@ def _delta_chain(ctxs: traversal.SceneContexts, scene: Scene, cfg: RenderConfig,
             reflect_now = rng.uniform1(pixel_idx, frame, dim) < f
             w = torch.ones_like(f)
         ray_refl = geo.reflect(-v, n)
-        ray_refr = geo.refract(-v, n, 1.0 / torch.clamp_min(eta, 1e-6))
+        ray_refr = geo.refract(-v, n, 1.0 / geo.clip_min(eta, 1e-6))
         reflect_now = reflect_now | (geo.length(ray_refr) < 0.5)   # total internal reflection
         ray = torch.where(reflect_now[..., None], ray_refl, geo.normalize(ray_refr))
         throughput = throughput * w[..., None]

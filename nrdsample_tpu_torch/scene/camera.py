@@ -51,7 +51,7 @@ def world_to_uv(cam: Camera, p: torch.Tensor, prev: bool = False) -> torch.Tenso
     """Project world points to screen uv in [0, 1] (y down), unjittered."""
     w2v = cam.world_to_view_prev if prev else cam.world_to_view
     v = geo.affine_transform(w2v, p)
-    z = torch.clamp_min(v[..., 2], 1e-6)
+    z = geo.clip_min(v[..., 2], 1e-6)
     x = v[..., 0] / (z * cam.tan_half_fov_y * cam.aspect)
     y = v[..., 1] / (z * cam.tan_half_fov_y)
     return torch.stack([x * 0.5 + 0.5, 0.5 - y * 0.5], dim=-1)

@@ -1,5 +1,7 @@
-"""The port's ``render`` and ``scenes`` commands on the CPU, and what they
-need: ``render`` writes the PNG that ``utils.image.write_png`` makes of the
+"""The port's ``render``, ``optimize`` and ``scenes`` commands on the CPU,
+and what they need: ``optimize`` takes the JAX CLI's flags and defaults,
+recovers the albedo at 16x16 and ends with the JAX command's JSON line and
+exit code rule; ``render`` writes the PNG that ``utils.image.write_png`` makes of the
 same ``render_frame`` output (the tonemapped final image, the post chain's
 display image, a debug view); ``write_png``'s bytes and
 ``tonemap_for_display`` equal the JAX package's for the same array; the
@@ -8,6 +10,7 @@ scene list is the JAX CLI's, and the two scenes the port's CLI adds
 ``random_soup``) equal the JAX builders' arrays."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -133,3 +136,50 @@ def test_render_without_a_card_names_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["render", "--size", "8", "--frames", "1", "--out", str(tmp_path / "x.png")])
     assert not (tmp_path / "x.png").exists()
+
+
+OPTIMIZE_KEYS = {"initial_albedo_error", "final_albedo_error", "final_loss", "recovered"}
+
+
+def _parsed(main, module, monkeypatch, argv):
+    """The argparse namespace ``main(argv)`` hands to ``cmd_optimize``."""
+    seen = []
+    monkeypatch.setattr(module, "cmd_optimize", lambda a: seen.append(vars(a)) or 0)
+    assert main(argv) == 0
+    return {k: v for k, v in seen[0].items() if k != "fn"}
+
+
+@pytest.mark.parametrize("argv", [[], ["--scene", "kitchen", "--size", "24", "--iters", "5",
+                                       "--lr", "1e-3", "--sun-elevation", "45", "--cpu"]])
+def test_optimize_takes_the_jax_flags(monkeypatch, argv):
+    want = _parsed(jcli.main, jcli, monkeypatch, ["optimize"] + argv)
+    got = _parsed(cli.main, cli, monkeypatch, ["optimize"] + argv)
+    assert got == want
+    if not argv:
+        assert got == {"cmd": "optimize", "scene": "cornellbox", "size": 48, "iters": 200,
+                       "lr": 4e-4, "sun_elevation": -30.0, "cpu": False}
+
+
+def _optimize(capsys, *argv):
+    rc = cli.main(["optimize", "--cpu", *argv])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == OPTIMIZE_KEYS
+    # the JAX command's rule: recovered, and exit 0, when the mean albedo
+    # error fell below half of its start
+    recovered = out["final_albedo_error"] < out["initial_albedo_error"] * 0.5
+    assert out["recovered"] is recovered and rc == (0 if recovered else 1)
+    return out
+
+
+def test_optimize_recovers_the_albedo(capsys):
+    # the default lr scaled to 16x16 (the loss sums over pixels)
+    out = _optimize(capsys, "--size", "16", "--iters", "30", "--lr", str(4e-4 * 48 * 48 / 256))
+    assert out["recovered"] and np.isfinite(out["final_loss"])
+    assert 0.0 < out["final_albedo_error"] < out["initial_albedo_error"]
+
+
+def test_optimize_without_steps_is_not_recovered(capsys):
+    out = _optimize(capsys, "--size", "8", "--iters", "1", "--lr", "0")
+    # float32 materials against the float64 perturbation
+    assert not out["recovered"]
+    assert out["final_albedo_error"] == pytest.approx(out["initial_albedo_error"], rel=1e-6)

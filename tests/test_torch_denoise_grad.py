@@ -15,14 +15,16 @@ gets None, which must match JAX's zeros.
 Tolerance 1e-4 abs/rel: the gradients sum tens of float32 terms, and
 XLA's exp and pow differ from PyTorch's by a few ULPs.
 
-Two differences are conventions at points where the function has no
-derivative, and the tests count them:
+At points where the function has no derivative the port takes JAX's
+conventions, and the tests count those points:
 
-- à-trous: a tap whose normal term ``clamp(dot(n_tap, n), 0, 1)`` is
+- à-trous: a tap whose normal term ``clip(dot(n_tap, n), 0, 1)`` is
   exactly 1 (the centre tap of a unit normal, and taps clamped onto it at
-  the border) is a tie of the clamp. PyTorch's clamp passes the whole
-  gradient there, XLA's ``clip`` (a max and a min) half of it. Only the
-  normal's gradient differs, and only at such pixels.
+  the border) is a tie of the clamp. ``geometry.clip`` passes half of the
+  gradient there, as XLA's ``clip`` (a max and a min) does, where a bare
+  ``torch.clamp`` would pass all of it. Off the ties every component of
+  the normal's gradient agrees; at a tie the pixel agrees within the
+  tolerance of its largest component.
 - TAA: the CIELAB distance ``|d|`` is exactly 0 wherever the history lies
   inside its clamp window. JAX's vjp is NaN there (sqrt's infinite
   derivative times 0), and its multiplicative selects carry the NaN into
@@ -133,10 +135,16 @@ def test_atrous_backward_matches_jax_reference_except_at_clamp_ties(step):
     for name, g, w in zip(("illum", "variance", "view_z"), got, want):
         assert not _bad(g, w).any(), f"{name}: max |diff| {np.abs(g - w).max()}"
     off = _bad(got[3], want[3]).any(-1)
-    # 376 of the 768 pixels hold a tie at either step; every pixel whose
-    # normal gradient differs is one of them
-    assert int(ties.sum()) == 376 and 0 < int(off.sum()) <= int(ties.sum())
+    # 376 of the 768 pixels hold a tie at either step; off the ties every
+    # component agrees
+    assert int(ties.sum()) == 376
     assert not (off & ~ties).any(), f"normal differs off the ties at {np.argwhere(off & ~ties)}"
+    # at the ties the port takes JAX's rule (half of the gradient; a bare
+    # torch.clamp is off by ~0.5 of the pixel's scale at the median tie):
+    # within GRAD_TOL of the pixel's largest |JAX| component, the
+    # tie term's factor phi_normal amplifying the ULPs of pow
+    err = np.abs(got[3] - want[3]).max(-1) / (1.0 + np.abs(want[3]).max(-1))
+    assert err[ties].max() <= GRAD_TOL, f"normal at the ties: max rel diff {err[ties].max()}"
 
 
 def _clamped_history_planes(seed):

@@ -24,6 +24,7 @@ import torch
 from nrdsample_tpu import config as jconfig
 from nrdsample_tpu.ops import traversal as jtraversal
 from nrdsample_tpu.pipeline import frame as jframe
+from nrdsample_tpu.post import neural_sr as jneural_sr
 from nrdsample_tpu.scene import procedural as jproc
 from nrdsample_tpu.scene.types import look_at as jlook_at
 from nrdsample_tpu_torch import config, convert
@@ -80,6 +81,10 @@ def _frames(case):
     js = jconfig.Settings(**{k: jnp.asarray(v, jnp.int32 if isinstance(v, int) else jnp.float32)
                              for k, v in SETTINGS.items()})
     jcfg = jconfig.RenderConfig(**_cfg_kw(jconfig, case))
+    # the JAX package caches its SR weights at the first call (lru_cache): a
+    # first call inside the trace below would cache tracers, which leak into
+    # every later test of this process that loads them
+    jneural_sr.load_weights()
     fn = jax.jit(lambda sc, c, st, h: jframe.render_frame(jctx, sc, c, jcfg, st, h))
     ctx, scene = traversal.build_context(convert.scene_from_numpy(_np_leaves(jscene), device="cpu"),
                                          device="cpu")
