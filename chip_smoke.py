@@ -31,8 +31,18 @@ debug view; the port's CLI as a subprocess), then the differentiable path
 (phase 8: ``train.bench_backward`` at 512x512 with its finite-difference
 check, one ``make_train_step`` on kitchen1080 at 1920x1080, the CLI's
 ``optimize`` as a subprocess, one step's gradients card against CPU, the
-five-field step through the probe kernel), and prints one JSON line of
-kernels plus a final ``{"ok": true, "device": ...}`` line. Any failed phase exits non-zero
+five-field step through the probe kernel), then the asset path (phase 9:
+(T) the textured kitchen1080 at 1920x1080, with normal maps and an
+alpha-tested material, timed, each kernel call of a frame against its plain
+version, card against CPU at 80x48, a full-size step with the texels
+requiring grad and their gradients card against CPU; (S) the same textures
+on shaderballs512, through the resident packet kernel; (G) the 1.06M-
+triangle exterior720 written with ``save_glb``, loaded back with
+``load_gltf`` and rendered through the streaming kernel beside the
+procedural frame, and a small textured .gltf with a PNG of
+``utils/image``; (R) the 19 record goldens replayed on the card), and
+prints one JSON line of kernels plus a final ``{"ok": true, "device": ...}``
+line. Any failed phase exits non-zero
 with no result line. It also runs the backward of the three denoiser
 dispatchers on (1080, 1920) planes that require grad (the kernel's forward,
 the plain version's gradient) and the TAA kernel on the kitchen1080 frame's
@@ -626,7 +636,7 @@ def check_frame_calls(calls: dict, launches: dict, cs, scene, card: str,
     Returns {kernel: max |err|}."""
     from nrdsample_tpu_torch.denoise import relax, taa
     from nrdsample_tpu_torch.mathlib import filtering
-    from nrdsample_tpu_torch.ops import cluster, emissive_probe
+    from nrdsample_tpu_torch.ops import cluster, emissive_probe, intersect
 
     tris = {k: getattr(scene.tris, k).cpu().numpy() for k in ("p0", "e1", "e2")}
     frame_err = {}
@@ -657,6 +667,13 @@ def check_frame_calls(calls: dict, launches: dict, cs, scene, card: str,
                     what = (f"{'sorted' if c['sort'] else 'coherent'} hits "
                             f"{int((ref['tri'] >= 0).sum())}")
                 notes.append(f"N={c['n']} {what}, tri (or blocked) differences {n_bad}")
+            elif name == "dense_hit":
+                ref = intersect.intersect_dense(c["origin"], c["direction"], c["p0"], c["e1"],
+                                                c["e2"], c["t_max"])
+                n_bad = int((got["tri"] != ref["tri"]).sum())
+                pairs = [max_err(got[k], ref[k]) for k in "tuv"]
+                err, ok = max(e for e, _ in pairs), n_bad == 0 and all(k for _, k in pairs)
+                notes.append(f"N={c['n']} E={c['p0'].shape[0]} hits {int((ref['tri'] >= 0).sum())}")
             elif name == "emissive_probe":
                 ref = emissive_probe.light_probe_plain(c["em"], c["origin"], c["direction"])
                 err, ok = max_err(got, ref)
@@ -1175,6 +1192,412 @@ def check_training(dev, card: str, reset_counts, counters: dict) -> dict:
         if not finite:
             fail(f"the {name} training step is not finite")
     return summary
+
+
+TEX_WARMUP, TEX_FRAMES = 2, 3         # textured frames: warm-up, then timed
+TEX_SMALL = dict(width=80, height=48, sharc_capacity=1 << 16)   # card against CPU
+TEX_GRAD_RES = 32                     # the texels' gradients, card against CPU
+TEX_GRAD_TOL = 1e-4                   # of the level's largest |CPU entry| (GRAD_TOL)
+GLTF_VIEW_Z_FRAC = FRAME_OUTLIER_FRAC  # the loaded exterior's geometry planes
+GLTF_MEAN_REL = 0.05                  # its mean luminance against the procedural frame's
+GLTF_SMALL_RES = 128
+
+
+def timed_frames(ctx, scene, cam, cfg, settings, hist, reset_counts, counters: dict, dev):
+    """TEX_WARMUP frames, then TEX_FRAMES timed ones with the kernel counts
+    set to 0 before them: (wall ms/frame, device-busy ms of one more frame,
+    kernels in it, peak memory, per-frame launches, last outputs, history)."""
+    from nrdsample_tpu_torch.pipeline import frame
+
+    for _ in range(TEX_WARMUP):
+        out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    per_frame = []
+    t0 = time.perf_counter()
+    for _ in range(TEX_FRAMES):
+        before = {k: count_of(m) for k, m in counters.items()}
+        out, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+        per_frame.append({k: count_of(m) - before[k] for k, m in counters.items()})
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TEX_FRAMES
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy, n_kernels = device_busy_ms(
+        lambda: frame.render_frame(ctx, scene, cam, cfg, settings, hist))
+    return ms, busy, n_kernels, peak, per_frame, out, hist
+
+
+def count_of(m) -> int:
+    """A kernel's launch count: its module's LAUNCHES (the streaming packet
+    kernel: the packet module's STREAM_LAUNCHES, named by None)."""
+    from nrdsample_tpu_torch.ops import packet
+
+    return packet.STREAM_LAUNCHES if m is None else m.LAUNCHES
+
+
+def check_textured(dev, card: str, launches: dict, reset_counts, counters: dict) -> dict:
+    """Phases (T) and (S): the textured variants of kitchen1080 and
+    shaderballs512 (``bench_configs.TEXTURED``: box uvs, 256x256 procedural
+    maps with normal maps, one alpha-tested material) at full size. Each:
+    wall and device-busy ms per frame, peak memory, launches per frame, then
+    one more frame with every kernel call recorded and held against its
+    plain version. (T) also: the textured kitchen at 80x48 card against CPU
+    (PERF.md §2's frame limits), one L2 step at full size with the material
+    fields and every mip level's texels requiring grad (forward and
+    backward timed apart), and the texels' gradients card against CPU
+    (REFERENCE, 32x32, two bounces) within TEX_GRAD_TOL of each level's
+    largest |CPU entry|. Adds the timed frames' launches to ``launches``."""
+    import dataclasses
+
+    from nrdsample_tpu_torch.config import FLAG_ALPHA_TEST, Denoiser, RenderConfig, TracingMode
+    from nrdsample_tpu_torch.denoise import atrous_cuda, taa_cuda, taccum_cuda
+    from nrdsample_tpu_torch.mathlib import color
+    from nrdsample_tpu_torch.ops import dense_cuda, emissive_probe, packet, reproject
+    from nrdsample_tpu_torch.pipeline import bench_configs, frame, train
+    from nrdsample_tpu_torch.scene import textures
+
+    summary = {}
+    specs = {"dense_hit": (dense_cuda, "closest_hit_dense_cuda", keep_rays),
+             "emissive_probe": (emissive_probe, "light_probe_cuda", keep_rays),
+             "packet_hit": (packet, "closest_hit_packet_cuda", keep_rays),
+             "bilinear_sample": (reproject, "sample_bilinear_cuda", keep_planes),
+             "relax_taccum": (taccum_cuda, "taccum_variance_cuda", keep_planes),
+             "relax_atrous": (atrous_cuda, "atrous_iteration_cuda", keep_planes),
+             "taa_resolve": (taa_cuda, "taa_resolve_cuda", keep_planes)}
+    for name, need in (("kitchen1080", ("dense_hit", "emissive_probe", "bilinear_sample",
+                                        "relax_taccum", "relax_atrous", "taa_resolve")),
+                       ("shaderballs512", ("packet_hit", "bilinear_sample"))):
+        label = f"textured {name}"
+        t0 = time.perf_counter()
+        ctx, scene, cam, cfg, settings = bench_configs.setup(name, dev, textured=True)
+        setup_s = time.perf_counter() - t0
+        ms, busy, n_kernels, peak, per_frame, out, hist = timed_frames(
+            ctx, scene, cam, cfg, settings, frame.History.create(cfg, dev), reset_counts,
+            counters, dev)
+        for k, m in counters.items():
+            launches[k] = launches.get(k, 0) + count_of(m)
+        lum = float(color.luminance(out["color"]).mean())
+        n_alpha = int(((scene.materials.flags & FLAG_ALPHA_TEST) != 0).sum())
+        print(f"[{label}] {cfg.width}x{cfg.height}, {scene.tris.count} triangles, textures "
+              f"{tuple(scene.textures.levels[0].shape)} in {scene.textures.n_mips} mips, "
+              f"{n_alpha} alpha-tested material(s), set up in {setup_s:.1f} s: {ms:.3f} ms/frame "
+              f"wall over {TEX_FRAMES} frames after {TEX_WARMUP} warm-up, device busy "
+              f"{busy:.3f} ms in {n_kernels} kernels (one more frame), idle share "
+              f"{1.0 - busy / ms:.3f}, peak memory {peak} B, mean luminance {lum:.6g}, "
+              f"launches/frame {per_frame[-1]} ({card})")
+        if not bool(torch.isfinite(out["color"]).all()) or not lum > 0.0:
+            fail(f"the {label} image is not finite with a positive mean luminance")
+        if not all(f[k] > 0 for f in per_frame for k in need):
+            fail(f"a {label} frame did not launch all of {need}: {per_frame}")
+        with recording({k: specs[k] for k in need}) as calls:
+            before = {k: count_of(counters[k]) for k in need}
+            frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+            recorded = {k: count_of(counters[k]) - before[k] for k in need}
+        torch.cuda.synchronize()
+        errs = check_frame_calls(calls, recorded, getattr(ctx, "clusters", None), scene, card,
+                                 label=label)
+        summary[name] = dict(ms=ms, busy=busy, peak=peak, launches=per_frame[-1], errs=errs,
+                             kernels=n_kernels)
+        del calls, out, hist
+
+        if name != "kitchen1080":
+            continue
+        # one L2 step at full size: the material fields and every level's
+        # texels require grad; forward and backward timed apart
+        levels = [lv.detach().clone().requires_grad_() for lv in scene.textures.levels]
+        diff, rest = train.split_materials(scene.materials)
+        diff = {k: v.detach().clone().requires_grad_() for k, v in diff.items()}
+        sc = dataclasses.replace(scene, textures=textures.TextureSet(levels),
+                                 materials=train.merge_materials(diff, rest))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def step():
+            h = frame.History.create(cfg, dev)
+            col = frame.render_frame(ctx, sc, cam, cfg, settings, h)[0]["color"]
+            loss = (col * col).sum()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            wrt = [*diff.values(), *levels]
+            grads = torch.autograd.grad(loss, wrt, allow_unused=True)   # ior: no glass
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(wrt, grads)]
+            torch.cuda.synchronize()
+            return loss, grads, t1
+
+        step()                                             # warm-up
+        t0 = time.perf_counter()
+        loss, grads, t1 = step()
+        t2 = time.perf_counter()
+        step_busy, step_kernels = device_busy_ms(step)
+        step_peak = torch.cuda.max_memory_allocated(dev)
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        print(f"[{label} step] {cfg.width}x{cfg.height}, L2 loss, gradients of the five "
+              f"material fields and the texels of all {len(levels)} levels: forward "
+              f"{(t1 - t0) * 1e3:.3f} ms, backward {(t2 - t1) * 1e3:.3f} ms wall, device busy "
+              f"{step_busy:.3f} ms in {step_kernels} kernels, peak memory {step_peak} B, loss "
+              f"{float(loss.detach()):.6g}, finite {finite}, largest |texel gradient| per level "
+              + ", ".join(f"{float(g.abs().max()):.4g}" for g in grads[len(diff):])
+              + f" ({card})")
+        if not finite or not any(bool(g.any()) for g in grads[len(diff):]):
+            fail(f"the {label} step's gradients are not finite or reach no texel")
+        summary["step"] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, step_busy, step_peak)
+        del ctx, scene, sc, levels, grads, diff, rest, loss
+        torch.cuda.empty_cache()
+
+        # the textured kitchen at 80x48, card against CPU: without SHARC whole
+        # frames are held to PERF.md §2; with it (a hit on a voxel boundary
+        # lands in the neighbouring cell when its last ULP differs, and RELAX
+        # spreads that voxel's radiance: the JAX package and the port's CPU
+        # frames differ as much) the image phase is held to §2 on one input,
+        # the CPU's trace of frame 0, and the whole frames are reported
+        for what, kw in (("without SHARC", dict(use_sharc=False, use_confidence=False)),
+                         ("its full config", {})):
+            outs, traces = {}, {}
+            for where in (dev, "cpu"):
+                c, s_, cm, cf, st = bench_configs.setup(name, where, textured=True,
+                                                        **dict(TEX_SMALL, **kw))
+                h = frame.History.create(cf, where)
+                if where == "cpu":
+                    traces = frame.trace_frame(c, s_, cm, cf, st, frame.History.create(cf, where))
+                for _ in range(3):
+                    o, h = frame.render_frame(c, s_, cm, cf, st, h)
+                outs[where] = (o, cm, st, cf)
+            worst = max((*frame_mismatch(outs["cpu"][0][k], outs[dev][0][k]), k)
+                        for k in RECORD_PLANES)
+            rel = max(frame_mismatch(outs["cpu"][0][k], outs[dev][0][k])[1]
+                      for k in ("color", "final"))
+            line = (f"[card vs cpu] {label} at {TEX_SMALL['width']}x{TEX_SMALL['height']} "
+                    f"{what}, 3 frames: worst outlier share {worst[0]:.6f} ({worst[2]}), color "
+                    f"and TAA mean gap {rel:.3g} (rel)")
+            if not kw:
+                images = {}
+                for where in (dev, "cpu"):
+                    _, cm, st, cf = outs[where]
+                    images[where] = frame.image_frame(cf, st, cm, frame.History.create(cf, where),
+                                                      *to_device(traces, where))[0]
+                iw = max((*frame_mismatch(images["cpu"][k], images[dev][k]), k)
+                         for k in RECORD_PLANES)
+                line += (f"; the image phase of frame 0 on the CPU's trace: worst outlier share "
+                         f"{iw[0]:.6f} ({iw[2]}), mean gap {iw[1]:.3g}")
+                worst, rel = iw, iw[1]
+            print(line)
+            if worst[0] > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL:
+                fail(f"the card's {label} frame ({what}) disagrees with the CPU frame")
+
+        # the texels' gradients, card against CPU
+        grads = {}
+        for where in ("cpu", dev):
+            c, s, cm, _, st = bench_configs.setup(name, where, textured=True)
+            cf = RenderConfig(width=TEX_GRAD_RES, height=TEX_GRAD_RES, rpp=1, bounce_num=2,
+                              importance_samples=4, tracing_mode=TracingMode.FULL_PROBABILISTIC,
+                              denoiser=Denoiser.REFERENCE)
+            lv = [x.detach().clone().requires_grad_() for x in s.textures.levels]
+            s = dataclasses.replace(s, textures=textures.TextureSet(lv))
+            col = frame.render_frame(c, s, cm, cf, st, frame.History.create(cf, where))[0]["color"]
+            grads[where] = [g.cpu() for g in torch.autograd.grad((col * col).sum(), lv)]
+        gaps = []
+        for level, (want, got) in enumerate(zip(grads["cpu"], grads[dev])):
+            scale = float(want.abs().max())
+            gap = float((got - want).abs().max())
+            gaps.append(gap / scale if scale > 0.0 else gap)
+            if not bool(torch.isfinite(got).all()) or gap > TEX_GRAD_TOL * scale:
+                fail(f"{label} texels of level {level}: the card's gradient is {gap:.4g} off the "
+                     f"CPU's (largest |CPU entry| {scale:.4g})")
+        print(f"[card vs cpu] {label} texel gradients (REFERENCE, {TEX_GRAD_RES}x{TEX_GRAD_RES}, "
+              f"two bounces), largest gap over the level's largest |CPU entry|, levels 0-"
+              f"{len(gaps) - 1}: " + ", ".join(f"{g:.3g}" for g in gaps))
+        summary["grad_gaps"] = gaps
+    return summary
+
+
+def check_gltf(dev, card: str, launches: dict, reset_counts, counters: dict) -> dict:
+    """Phase (G): the full exterior720 scene written with ``save_glb`` and
+    loaded back with ``load_gltf`` (seconds of each), one exterior720 frame
+    of the loaded scene through the supercluster stage 1 and the streaming
+    kernel beside one of the procedural scene (their geometry planes within
+    PERF.md §2's outlier share, their mean luminance within GLTF_MEAN_REL),
+    then a small textured .gltf with a PNG written by ``utils/image`` loaded
+    and rendered on the card and on the CPU."""
+    import tempfile
+
+    from nrdsample_tpu_torch.config import Denoiser, RenderConfig, TracingMode, make_settings
+    from nrdsample_tpu_torch.mathlib import color
+    from nrdsample_tpu_torch.ops import traversal
+    from nrdsample_tpu_torch.pipeline import bench_configs, frame
+    from nrdsample_tpu_torch.scene import gltf
+    from nrdsample_tpu_torch.scene.types import look_at
+    from nrdsample_tpu_torch.utils import image
+
+    summary = {}
+    spec = bench_configs.CONFIGS["exterior720"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "exterior720.glb")
+        t0 = time.perf_counter()
+        scene = spec["scene"]()
+        t1 = time.perf_counter()
+        gltf.save_glb(scene, path)
+        t2 = time.perf_counter()
+        loaded = gltf.load_gltf(path, device=dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        size = os.path.getsize(path)
+        print(f"[gltf] exterior720 ({scene.tris.count} triangles, {len(scene.materials.flags)} "
+              f"materials, built in {t1 - t0:.1f} s): save_glb {t2 - t1:.2f} s, {size} B; "
+              f"load_gltf onto the card {t3 - t2:.2f} s: {loaded.tris.count} triangles, "
+              f"{len(loaded.materials.flags)} materials, {int(loaded.emissive_count)} emitters "
+              f"({card})")
+        if loaded.tris.count != scene.tris.count:
+            fail("the exterior720 glb lost triangles")
+        outs = {}
+        for what, sc in (("procedural", scene), ("loaded", loaded)):
+            t0 = time.perf_counter()
+            ctxs, sc = traversal.build_scene_contexts(sc, device=dev)
+            build_s = time.perf_counter() - t0
+            eye, target, fov = spec["cam"]
+            cfg = RenderConfig(**spec["cfg"], tracing_mode=TracingMode.FULL_PROBABILISTIC)
+            cam = look_at(eye, target, fov_y_deg=fov, aspect=cfg.width / cfg.height, device=dev)
+            settings = make_settings(dev, **spec["settings"])
+            hist = frame.History.create(cfg, dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            out, _ = frame.render_frame(ctxs, sc, cam, cfg, settings, hist)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {k: count_of(m) for k, m in counters.items()}
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            lum = float(color.luminance(out["color"]).mean())
+            print(f"[gltf] exterior720 frame of the {what} scene (contexts in {build_s:.1f} s, "
+                  f"opaque {ctxs.opaque.clusters.count} clusters): {ms:.3f} ms (the first "
+                  f"frame), mean luminance {lum:.6g}, glass pixels "
+                  f"{int(out['glass_mask'].sum())}, launches {got}")
+            if not (got["packet_hit_stream"] and got["packet_hit"]):
+                fail(f"the {what} exterior720 frame did not take the streaming and resident "
+                     f"packet kernels: {got}")
+            outs[what] = {k: out[k] for k in ("color", "view_z", "normal", "glass_mask")}
+            outs[what]["lum"] = lum
+            del ctxs, sc, out, hist
+        del scene, loaded
+        torch.cuda.empty_cache()
+        a, b = outs["procedural"], outs["loaded"]
+        geo_frac = max(frame_mismatch(a[k], b[k])[0] for k in ("view_z", "normal"))
+        glass_frac = float((a["glass_mask"] != b["glass_mask"]).float().mean())
+        lum_rel = abs(b["lum"] - a["lum"]) / a["lum"]
+        print(f"[gltf] exterior720 loaded against procedural: view_z / normal outlier share "
+              f"{geo_frac:.6f}, glass mask differs on {glass_frac:.6f} of the pixels, mean "
+              f"luminance {b['lum']:.6g} against {a['lum']:.6g} ({lum_rel:.3g} rel), colour "
+              f"outlier share {frame_mismatch(a['color'], b['color'])[0]:.6f} (emitter order "
+              f"and the sampled lights differ)")
+        if not bool(torch.isfinite(b["color"]).all()) or geo_frac > GLTF_VIEW_Z_FRAC \
+                or glass_frac > GLTF_VIEW_Z_FRAC or lum_rel > GLTF_MEAN_REL:
+            fail("the exterior720 frame of the loaded glb does not match the procedural one")
+        summary["exterior"] = (t2 - t1, t3 - t2, geo_frac, lum_rel)
+
+        # a small textured .gltf: a ground quad and a box, a PNG base colour
+        n = 64
+        yy, xx = np.mgrid[0:n, 0:n]
+        tex = np.stack([(xx // 8 + yy // 8) % 2 * 0.7 + 0.2, xx / n, yy / n], -1)
+        image.write_png(os.path.join(tmp, "checker.png"), tex.astype(np.float32))
+        path = write_textured_gltf(tmp, "checker.png")
+        outs = {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            sc = gltf.load_gltf(path, tex_res=n, device=where)
+            load_s = time.perf_counter() - t0
+            ctx, sc = traversal.build_context(sc, device=where)
+            cfg = RenderConfig(width=GLTF_SMALL_RES, height=GLTF_SMALL_RES, rpp=1, bounce_num=1,
+                               denoiser=Denoiser.REFERENCE)
+            cam = look_at([0.0, -3.0, 2.0], [0.0, 0.0, 0.3], fov_y_deg=50.0, device=where)
+            settings = make_settings(where, sun_elevation=45.0)
+            outs[where] = frame.render_frame(ctx, sc, cam, cfg, settings,
+                                             frame.History.create(cfg, where))[0]
+            if where == dev:
+                print(f"[gltf] textured .gltf ({sc.tris.count} triangles, texture "
+                      f"{tuple(sc.textures.levels[0].shape)}, a PNG of utils/image.write_png) "
+                      f"loaded onto the card in {load_s:.3f} s")
+        frac, rel = frame_mismatch(outs["cpu"]["color"], outs[dev]["color"])
+        lum = float(color.luminance(outs[dev]["color"]).mean())
+        print(f"[card vs cpu] textured .gltf {GLTF_SMALL_RES}x{GLTF_SMALL_RES} REFERENCE: "
+              f"outlier share {frac:.6f}, mean gap {rel:.3g} (rel), mean luminance {lum:.6g}")
+        if frac > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL or not lum > 0.0:
+            fail("the textured .gltf frame on the card disagrees with the CPU frame")
+        summary["small"] = (frac, rel)
+    return summary
+
+
+def write_textured_gltf(folder: str, png_name: str) -> str:
+    """A .gltf in ``folder``: a 6x6 ground quad and a unit box above it, with
+    uvs, both textured with the PNG ``png_name`` beside it (its buffer a data
+    URI). Returns its path."""
+    import base64
+
+    ground = np.array([[-3, -3, 0], [3, -3, 0], [3, 3, 0], [-3, 3, 0]], np.float32)
+    # the box's corner (x, y, z) is vertex 4 + 4 z + 2 y + x
+    box = np.array([[x - 0.5, y - 0.5, 0.2 + z] for z in (0, 1) for y in (0, 1) for x in (0, 1)],
+                   np.float32)
+    verts = np.concatenate([ground, box])
+    uvs = np.concatenate([ground[:, :2] / 2.0, box[:, [0, 2]] + box[:, 1:2]]).astype(np.float32)
+    quads = [(0, 1, 2, 3), (4, 5, 7, 6), (8, 9, 11, 10), (4, 5, 9, 8), (6, 7, 11, 10),
+             (4, 6, 10, 8), (5, 7, 11, 9)]
+    idx = np.array([(a, b, c, a, c, d) for a, b, c, d in quads], np.uint16).reshape(-1)
+    buf = verts.tobytes() + uvs.tobytes() + idx.tobytes()
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "TEXCOORD_0": 1},
+                                    "indices": 2, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                                "metallicFactor": 0.0, "roughnessFactor": 0.6}}],
+        "textures": [{"source": 0}], "images": [{"uri": png_name}],
+        "buffers": [{"byteLength": len(buf), "uri": "data:application/octet-stream;base64,"
+                     + base64.b64encode(buf).decode()}],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": verts.nbytes},
+            {"buffer": 0, "byteOffset": verts.nbytes, "byteLength": uvs.nbytes},
+            {"buffer": 0, "byteOffset": verts.nbytes + uvs.nbytes, "byteLength": idx.nbytes}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(verts), "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5126, "count": len(uvs), "type": "VEC2"},
+            {"bufferView": 2, "componentType": 5123, "count": len(idx), "type": "SCALAR"}],
+    }
+    path = os.path.join(folder, "textured.gltf")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def check_goldens(dev, card: str) -> dict:
+    """Phase (R): the 19 record goldens of Tests/golden replayed on the card
+    through ``replay.render_record`` at their resolution and held to
+    tests/test_golden.py's bound (``replay.golden_limit``). A golden the card
+    misses is replayed on the CPU too and both results are printed; any miss
+    on the card fails the phase."""
+    from nrdsample_tpu_torch.pipeline import replay
+
+    t0 = time.perf_counter()
+    ids = replay.golden_ids()
+    contexts = replay.build_contexts(sorted({s for s, _ in ids}), dev)
+    rows, misses = [], []
+    for scene_name, index in ids:
+        ok, tile, mean, limit = replay.check_golden(contexts, scene_name, index, dev)
+        rows.append((f"{scene_name}-{index:03d}", tile, limit))
+        if not ok:
+            cpu = replay.check_golden(replay.build_contexts([scene_name], "cpu"), scene_name,
+                                      index, "cpu")
+            misses.append(f"{scene_name} #{index}: card tile error {tile:.4g}, mean error "
+                          f"{mean:.4g}, CPU {'passes' if cpu[0] else 'misses'} (tile error "
+                          f"{cpu[1]:.4g}); bound {limit:.4g}")
+    worst = max(rows, key=lambda r: r[1] / r[2])
+    print(f"[goldens] {len(ids)} record goldens on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{len(ids) - len(misses)} within the bound, largest tile error over its bound "
+          f"{worst[1]:.4g} / {worst[2]:.4g} ({worst[0]}); "
+          + "; ".join(f"{n} {t:.3g}" for n, t, _ in rows) + f" ({card})")
+    for m in misses:
+        print(f"[goldens] MISS {m}")
+    if len(ids) != 19 or misses:
+        fail(f"{len(misses)} of {len(ids)} goldens miss on the card")
+    return {"worst": worst, "n": len(ids)}
 
 
 def main() -> int:
@@ -2164,6 +2587,27 @@ def main() -> int:
     training = check_training(dev, card, reset_counts, train_counters)
     print(f"[training] phase in {time.perf_counter() - t0:.1f} s")
 
+    # ---- 9. the asset path: (T) textured kitchen1080 and (S) textured
+    # shaderballs512 (normal maps, the alpha test's re-traces), (G) the
+    # exterior720 glb written and loaded back, a small textured .gltf, (R)
+    # the 19 record goldens on the card ----
+    asset_counters = {"dense_hit": dense_cuda, "emissive_probe": emissive_probe,
+                      "packet_hit": packet, "packet_hit_stream": None,
+                      "bilinear_sample": reproject, "relax_taccum": taccum_cuda,
+                      "relax_atrous": atrous_cuda, "taa_resolve": taa_cuda}
+    t0 = time.perf_counter()
+    textured = check_textured(dev, card, launches, reset_counts, asset_counters)
+    t1 = time.perf_counter()
+    gltf_res = check_gltf(dev, card, launches, reset_counts, asset_counters)
+    t2 = time.perf_counter()
+    goldens = check_goldens(dev, card)
+    print(f"[asset path] (T) and (S) in {t1 - t0:.1f} s, (G) in {t2 - t1:.1f} s, (R) in "
+          f"{time.perf_counter() - t2:.1f} s")
+    for k, e in textured["kitchen1080"]["errs"].items():
+        frame_err[k] = max(frame_err.get(k, 0.0), e)
+    for k, e in textured["shaderballs512"]["errs"].items():
+        frame_err[k] = max(frame_err.get(k, 0.0), e)
+
     dense = results[("dense", "kitchen", "per-ray")]
     prim = packet_res["primary"]
     bil = bil_res[(9, "3")]
@@ -2258,6 +2702,19 @@ def main() -> int:
           f"peak {ab['peak_memory_bytes']} B, FD rel err {ab['grad_fd_rel_err']:.4g}; (B) "
           f"kitchen1080 step {kb[0]:.3f} ms wall, {kb[1]:.3f} ms busy, peak {kb[2]} B, launches "
           f"{kb[3]}; (C) optimize {training['C'][0]:.1f} s ({card})")
+    tk, ts_ = textured["kitchen1080"], textured["shaderballs512"]
+    st = textured["step"]
+    print(f"[asset summary] (T) textured kitchen1080: {tk['ms']:.3f} ms/frame wall, "
+          f"{tk['busy']:.3f} ms busy, peak {tk['peak']} B, launches/frame {tk['launches']}; "
+          f"its L2 step forward {st[0]:.3f} ms, backward {st[1]:.3f} ms, busy {st[2]:.3f} ms, "
+          f"peak {st[3]} B; texel gradients card vs CPU "
+          f"{max(textured['grad_gaps']):.3g} of the level's largest; (S) textured "
+          f"shaderballs512: {ts_['ms']:.3f} ms/frame wall, {ts_['busy']:.3f} ms busy, launches/frame "
+          f"{ts_['launches']}; (G) exterior720 glb save {gltf_res['exterior'][0]:.2f} s, load "
+          f"{gltf_res['exterior'][1]:.2f} s, geometry outlier share "
+          f"{gltf_res['exterior'][2]:.6f}, mean luminance gap {gltf_res['exterior'][3]:.3g}; "
+          f"(R) {goldens['n']} goldens, worst tile error {goldens['worst'][1]:.4g} of "
+          f"{goldens['worst'][2]:.4g} ({goldens['worst'][0]}) ({card})")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,14 +9,16 @@ first use and bound through ``ctypes``.
 Ported so far: every branch of ``pipeline.frame.render_frame`` (every
 denoiser, the radiance caches, TAA, the output-resolution chain with the
 learned SR and RR networks, the debug views), for scenes in dense mode
-(<= 1024 triangles) and cluster mode, with glass; the single-device
+(<= 1024 triangles) and cluster mode, with glass, textures, normal maps
+and the alpha test; glTF scenes (``scene.gltf.load_gltf``); the record
+replay and its golden gate (``pipeline.replay``); the single-device
 training step, its backward bench and checkpoints (``pipeline/train.py``,
 ``checkpoint.py``), with JAX's gradient conventions; and the ``render``,
 ``optimize`` and ``scenes`` commands of ``python -m
 nrdsample_tpu_torch.cli``. Entry points
 put their tensors on the CUDA card unless the caller passes
-``device="cpu"``. Scene features of later slices (textures, alpha test,
-instances) raise ``NotImplementedError``.
+``device="cpu"``. Instanced scenes (the animate path, a later slice) raise
+``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

@@ -26,6 +26,7 @@ from nrdsample_tpu_torch.ops.sharc import SharcState
 from nrdsample_tpu_torch.pipeline.frame import History
 from nrdsample_tpu_torch.post.neural_rr import NeuralRRHistory
 from nrdsample_tpu_torch.render.l1cache import L1History
+from nrdsample_tpu_torch.scene.textures import TextureSet
 from nrdsample_tpu_torch.scene.types import Camera, Materials, Scene, TriangleSoA
 
 
@@ -44,12 +45,17 @@ def _fields(cls, d: dict, device):
 def scene_from_numpy(d: dict, device=None) -> Scene:
     """d: {"tris": {TriangleSoA field: array}, "materials": {Materials field:
     array}, "emissive_tris", "emissive_count", optional "has_emissive",
-    "has_alpha_test", "textures", "tri_instance", "instance_scales"}."""
+    "has_alpha_test", "textures" ({"levels": [(M, h, w, 10) array per mip
+    level]}, a TextureSet's leaves), "tri_instance", "instance_scales"}. The
+    instance leaves raise NotImplementedError (the animate path)."""
     device = resolve(device)
-    for key in ("textures", "tri_instance", "instance_scales"):
+    for key in ("tri_instance", "instance_scales"):
         if d.get(key) is not None:
             raise NotImplementedError(f"scene leaf {key!r} is ported in a later slice")
     count = np.asarray(d["emissive_count"])
+    textures = d.get("textures")
+    if textures is not None:
+        textures = TextureSet([_t(np.asarray(lv, np.float32), device) for lv in textures["levels"]])
     return Scene(
         tris=TriangleSoA(**_fields(TriangleSoA, d["tris"], device)),
         materials=Materials(**_fields(Materials, d["materials"], device)),
@@ -57,6 +63,7 @@ def scene_from_numpy(d: dict, device=None) -> Scene:
         emissive_count=_t(count, device),
         has_emissive=bool(d.get("has_emissive", int(count) > 0)),
         has_alpha_test=bool(d.get("has_alpha_test", False)),
+        textures=textures,
     )
 
 

@@ -61,10 +61,6 @@ def check_scene_supported(scene, mode: str | None) -> None:
         raise NotImplementedError(
             f"{n} triangles > DENSE_CUTOFF={DENSE_CUTOFF}: the dense hit kernel takes at most "
             f"{DENSE_CUTOFF}; use cluster mode")
-    if scene.textures is not None:
-        raise NotImplementedError("textured materials are not ported yet (glTF scenes)")
-    if scene.has_alpha_test:
-        raise NotImplementedError("alpha-tested materials are not ported yet (glTF scenes)")
     if scene.tri_instance is not None or scene.instance_scales is not None:
         raise NotImplementedError("instance material scales are not ported yet (animated "
                                   "instances, off the bench path)")
@@ -182,12 +178,40 @@ def closest_hit(ctx: TraceContext, origin, direction, t_max=T_MAX, coherent: boo
 
 
 def closest_hit_alpha(ctx: TraceContext, scene, origin, direction, t_max=T_MAX,
-                      coherent: bool = True) -> dict:
-    """Closest hit with the alpha test; scenes of this port carry no
-    alpha-tested material, so this is ``closest_hit``."""
-    if getattr(scene, "has_alpha_test", False) and scene.textures is not None:
-        raise NotImplementedError("alpha-tested materials are not ported yet (glTF scenes)")
-    return closest_hit(ctx, origin, direction, t_max, coherent=coherent)
+                      rounds: int = 4, coherent: bool = True) -> dict:
+    """Closest hit with the alpha test: a hit on a FLAG_ALPHA_TEST material
+    whose alpha (``textures.sample_alpha``) is below 0.5 is transparent. The
+    rays that met one are traced again just past it, up to ``rounds`` times,
+    through ``closest_hit`` with their t_max cut by the distance skipped (a
+    round no ray needs is skipped); t is reported from the original origin.
+    A scene without alpha-tested textures is ``closest_hit``."""
+    if not scene.has_alpha_test or scene.textures is None:
+        return closest_hit(ctx, origin, direction, t_max, coherent=coherent)
+    from nrdsample_tpu_torch.scene import textures as tex_mod
+
+    origin, direction = origin.detach(), direction.detach()
+    tr = scene.tris
+    t_max_arr = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device)
+    t_max_arr = t_max_arr.expand(origin.shape[:1]).contiguous()
+    res = closest_hit(ctx, origin, direction, t_max_arr, coherent=coherent)
+    offset = torch.zeros_like(res["t"])   # distance skipped so far, per ray
+    with torch.no_grad():
+        for _ in range(rounds):
+            tri = torch.clamp_min(res["tri"], 0).long()
+            mat = tr.material[tri].long()
+            needs_test = (res["tri"] >= 0) & ((scene.materials.flags[mat]
+                                               & cfgmod.FLAG_ALPHA_TEST) != 0)
+            u, v = res["u"], res["v"]
+            w = 1.0 - u - v
+            uv = w[..., None] * tr.uv0[tri] + u[..., None] * tr.uv1[tri] + v[..., None] * tr.uv2[tri]
+            reject = needs_test & (tex_mod.sample_alpha(scene.textures, mat, uv) < 0.5)
+            new_offset = torch.where(reject, offset + res["t"] + 1e-4, offset)
+            if bool(reject.any()):
+                o2 = origin + direction * new_offset[..., None]
+                res2 = closest_hit(ctx, o2, direction, t_max_arr - new_offset, coherent=coherent)
+                res = {k: torch.where(reject, res2[k], res[k]) for k in ("t", "u", "v", "tri")}
+            offset = new_offset
+    return dict(res, t=torch.where(res["tri"] >= 0, res["t"] + offset, res["t"]))
 
 
 def any_hit_t(ctx: TraceContext, origin, direction, t_max, coherent: bool = False):

@@ -6,7 +6,7 @@ from __future__ import annotations
 from nrdsample_tpu_torch import config as cfgmod
 from nrdsample_tpu_torch.config import Denoiser, NrdMode, RenderConfig, TracingMode, make_settings
 from nrdsample_tpu_torch.ops import traversal
-from nrdsample_tpu_torch.scene import procedural
+from nrdsample_tpu_torch.scene import procedural, textures
 from nrdsample_tpu_torch.scene.types import look_at
 
 CONFIGS = {
@@ -52,18 +52,33 @@ CONFIGS = {
 }
 
 
-def setup(name: str, device=None, scene_kw: dict | None = None, **cfg_overrides):
+#: the textured variants of two configurations (``setup(textured=True)``): a
+#: box uv chart, ``textures.procedural_maps`` at 256x256 for every material
+#: (base colour, roughness, metalness, a normal map) and a cut-out alpha on
+#: one material: the kitchen's counter tops, one of the shader balls
+TEXTURED = {
+    "kitchen1080": dict(res=256, alpha_materials=(4,)),
+    "shaderballs512": dict(res=256, alpha_materials=(5,)),
+}
+
+
+def setup(name: str, device=None, scene_kw: dict | None = None, textured: bool = False,
+          **cfg_overrides):
     """(ctx, scene, cam, cfg, settings) of configuration ``name`` on
     ``device`` (the CUDA card when None); ``scene_kw`` replaces arguments of
-    the scene builder (a smaller scene), ``cfg_overrides`` RenderConfig
-    fields (a smaller size, say). A configuration with glass gets the
-    SceneContexts of ``build_scene_contexts``."""
+    the scene builder (a smaller scene), ``textured`` gives the scene the
+    textures of ``TEXTURED[name]``, ``cfg_overrides`` RenderConfig fields (a
+    smaller size, say). A configuration with glass gets the SceneContexts of
+    ``build_scene_contexts``."""
     spec = CONFIGS[name]
     kw = dict(spec["cfg"], tracing_mode=TracingMode.FULL_PROBABILISTIC)
     kw.update(cfg_overrides)
     cfg = RenderConfig(**kw)
     build = traversal.build_scene_contexts if spec.get("glass") else traversal.build_context
-    ctx, scene = build(spec["scene"](**(scene_kw or {})), device=device)
+    scene = spec["scene"](**(scene_kw or {}))
+    if textured:
+        scene = textures.textured_scene(scene, **TEXTURED[name])
+    ctx, scene = build(scene, device=device)
     eye, target, fov = spec["cam"]
     cam = look_at(eye, target, fov_y_deg=fov, aspect=cfg.width / cfg.height, device=device)
     return ctx, scene, cam, cfg, make_settings(device, **spec["settings"])

@@ -2,7 +2,8 @@
 ``nrdsample_tpu/pipeline/records.py``: loading, and the replay harness of
 ``nrdsample_tpu/pipeline/replay.py``). A record is one entry of a
 ``Tests/<scene>.json`` list; its ``render`` block pins RenderConfig fields
-and its ``animation`` block, where present, a short camera orbit.
+and its ``animation`` block, where present, a few frames: with mode "orbit"
+(the default) a short camera orbit, with "blink" a still camera.
 
 To replay one record on a device::
 
@@ -182,17 +183,19 @@ def build_replay_context(scene_name: str, device=None):
 def replay_record(ctx, scene, scene_name: str, index: int, device=None, **base):
     """Render record ``index`` of a scene file through all its frames: its
     own RenderConfig (``render_config(render, **base)``), the history reset
-    at the first frame, an animated record's camera orbiting frame by frame
-    with the history carried. Returns (outputs of the last frame, history,
-    frames)."""
+    at the first frame, the history carried across an animated record's
+    frames and, where its mode is "orbit" (the default), the camera orbiting
+    frame by frame. Returns (outputs of the last frame, history, frames)."""
     device = resolve(device)
     settings, cam, render, animation = load_record_full(record_path(scene_name), index, device)
     cfg = render_config(render, **base)
     hist = frame.History.create(cfg, device)
     frames = (animation or {}).get("frames", 1)
     out = None
+    # only orbit records move the camera; a blink record keeps it
+    orbit = bool(animation) and animation.get("mode", "orbit") == "orbit"
     for step in range(frames):
-        frame_cam = orbit_cam(cam, step) if animation else cam
+        frame_cam = orbit_cam(cam, step) if orbit else cam
         out, hist = frame.render_frame(ctx, scene, frame_cam, cfg, settings, hist,
                                        reset_history=step == 0)
     return out, hist, frames

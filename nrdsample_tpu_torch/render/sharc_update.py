@@ -34,7 +34,8 @@ def _decode(scene: Scene, hit, origin, direction, sun_dir, tan_sun, cfg: RenderC
     return gbuffer.decode_hit(scene, hit, origin, direction, sun_dir, tan_sun,
                               cfg.use_white_furnace, settings.emission_intensity,
                               forced_material=settings.forced_material,
-                              emission_scale_cubes=settings.emission_intensity_cubes)
+                              emission_scale_cubes=settings.emission_intensity_cubes,
+                              use_normal_map=settings.use_normal_map)
 
 
 def _contexts(ctx) -> traversal.SceneContexts:

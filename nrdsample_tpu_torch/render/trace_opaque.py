@@ -239,7 +239,8 @@ def trace_paths(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                 scene, hit, xo, ray, sun_dir, tan_sun, cfg.use_white_furnace,
                 settings.emission_intensity, forced_material=settings.forced_material,
                 emission_scale_cubes=settings.emission_intensity_cubes,
-                with_tangent=cfg.use_hair_sss,
+                with_tangent=cfg.use_hair_sss, cone_width=cone["width"],
+                use_normal_map=settings.use_normal_map,
             )
 
             direct = lighting.direct_sun_lighting(
@@ -442,7 +443,7 @@ def psr_walk(ctx, scene, cfg: RenderConfig, settings: Settings, cam: Camera, pro
             scene, hit, xo, ray, sun_dir, tan_sun, cfg.use_white_furnace,
             settings.emission_intensity, forced_material=settings.forced_material,
             emission_scale_cubes=settings.emission_intensity_cubes,
-            with_tangent=cfg.use_hair_sss,
+            with_tangent=cfg.use_hair_sss, use_normal_map=settings.use_normal_map,
         )
         new_throughput = throughput * f
         l_new = l_psr + new_throughput * new_props["lemi"] * (~new_props["miss"])[..., None]
@@ -490,6 +491,7 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         scene, hit, origin, direction, sun_dir, tan_sun, cfg.use_white_furnace,
         settings.emission_intensity, forced_material=settings.forced_material,
         emission_scale_cubes=settings.emission_intensity_cubes, with_tangent=cfg.use_hair_sss,
+        cone_width=cone["width"], use_normal_map=settings.use_normal_map,
     )
     props = gbuffer.apply_overrides(props, settings.roughness_override, settings.metalness_override)
 

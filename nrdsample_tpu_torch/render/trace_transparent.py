@@ -50,7 +50,8 @@ def _fresnel_dielectric(cos_i, eta):
 def _decode(scene: Scene, hit, o, d, sun_dir, tan_sun, cfg: RenderConfig, settings: Settings):
     return gbuffer.decode_hit(scene, hit, o, d, sun_dir, tan_sun, cfg.use_white_furnace,
                               settings.emission_intensity, forced_material=settings.forced_material,
-                              emission_scale_cubes=settings.emission_intensity_cubes)
+                              emission_scale_cubes=settings.emission_intensity_cubes,
+                              use_normal_map=settings.use_normal_map)
 
 
 def _delta_chain(ctxs: traversal.SceneContexts, scene: Scene, cfg: RenderConfig,

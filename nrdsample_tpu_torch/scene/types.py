@@ -73,8 +73,11 @@ class Scene:
     """A renderable scene. ``emissive_tris`` lists the emissive triangles,
     padded with -1 to a static size; ``emissive_count`` is a 0-d int32.
 
-    ``textures``, ``tri_instance`` and ``instance_scales`` are None in this
-    port; ``ops.traversal.build_context`` rejects scenes that need them."""
+    ``textures`` is the ``scene/textures.TextureSet`` of the materials (None
+    for constant materials), and ``has_alpha_test`` says that a material
+    carries FLAG_ALPHA_TEST. ``tri_instance`` and ``instance_scales`` are
+    None in this port; ``ops.traversal.build_context`` rejects scenes that
+    need them."""
 
     tris: TriangleSoA
     materials: Materials
@@ -201,21 +204,8 @@ def build_triangle_soa(vertices: np.ndarray, indices: np.ndarray, normals: np.nd
         t0, t1, t2 = (tangents[indices[:, k], :3] for k in range(3))
         bitan_sign = tangents[indices[:, 0], 3]
     else:
-        duv1 = np.asarray(uv1, np.float32) - np.asarray(uv0, np.float32)
-        duv2 = np.asarray(uv2, np.float32) - np.asarray(uv0, np.float32)
-        det = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
-        ok = np.abs(det) > 1e-12
-        inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
-        tang = (e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2]) * inv[:, None]
-        gnn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
-        alt = np.cross(gnn, np.where(np.abs(gnn[:, 2:3]) < 0.9,
-                                     np.array([0.0, 0.0, 1.0], np.float32),
-                                     np.array([1.0, 0.0, 0.0], np.float32)))
-        tlen = np.linalg.norm(tang, axis=-1, keepdims=True)
-        good = (ok[:, None]) & (tlen > 1e-12)
-        tang = np.where(good, tang / np.maximum(tlen, 1e-20), alt)
-        t0 = t1 = t2 = tang.astype(np.float32)
-        bitan_sign = np.where(det < 0.0, -1.0, 1.0).astype(np.float32)
+        tang, bitan_sign = uv_tangents(e1, e2, uv0, uv1, uv2)
+        t0 = t1 = t2 = tang
     f = lambda a: torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
     return TriangleSoA(
         p0=f(p0), e1=f(e1), e2=f(e2), n0=f(n0), n1=f(n1), n2=f(n2),
@@ -223,6 +213,27 @@ def build_triangle_soa(vertices: np.ndarray, indices: np.ndarray, normals: np.nd
         material=torch.from_numpy(np.asarray(material, np.int32).copy()),
         world_area=f(area), t0=f(t0), t1=f(t1), t2=f(t2), bitan_sign=f(bitan_sign),
     )
+
+
+def uv_tangents(e1: np.ndarray, e2: np.ndarray, uv0, uv1, uv2):
+    """Per-triangle (T, 3) unit tangents along +u of the uv chart and the
+    bitangent signs (T,), from the (T, 3) edges and (T, 2) corner uvs; a
+    degenerate chart falls back to a tangent of the geometric normal."""
+    gn = np.cross(e1, e2)
+    duv1 = np.asarray(uv1, np.float32) - np.asarray(uv0, np.float32)
+    duv2 = np.asarray(uv2, np.float32) - np.asarray(uv0, np.float32)
+    det = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
+    ok = np.abs(det) > 1e-12
+    inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+    tang = (e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2]) * inv[:, None]
+    gnn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
+    alt = np.cross(gnn, np.where(np.abs(gnn[:, 2:3]) < 0.9,
+                                 np.array([0.0, 0.0, 1.0], np.float32),
+                                 np.array([1.0, 0.0, 0.0], np.float32)))
+    tlen = np.linalg.norm(tang, axis=-1, keepdims=True)
+    good = (ok[:, None]) & (tlen > 1e-12)
+    tang = np.where(good, tang / np.maximum(tlen, 1e-20), alt)
+    return tang.astype(np.float32), np.where(det < 0.0, -1.0, 1.0).astype(np.float32)
 
 
 MAX_EMISSIVE_HARD_CAP = 8192

@@ -35,7 +35,7 @@ from nrdsample_tpu_torch.ops import (_kernels, dense_cuda, emissive_probe, inter
                                      traversal)
 from nrdsample_tpu_torch.render import emissive_is
 from nrdsample_tpu_torch.scene import procedural
-from torch_session_cache import session_cached, share_cores_between_workers
+from torch_session_cache import declare, session_cached, share_cores_between_workers
 
 share_cores_between_workers()
 
@@ -146,6 +146,9 @@ np.savez(sys.argv[1], **out)
 def unfused_oracle(tmp_path_factory):
     return session_cached(tmp_path_factory, "torch_dense_hit_unfused_oracle",
                           lambda: _unfused_oracle(tmp_path_factory))
+
+
+declare("torch_dense_hit_unfused_oracle", lambda tpf: _unfused_oracle(tpf))
 
 
 def _unfused_oracle(tmp_path_factory):

@@ -32,9 +32,9 @@ from nrdsample_tpu_torch.denoise import composition
 from nrdsample_tpu_torch.ops import emissive_probe, intersect, traversal
 from nrdsample_tpu_torch.pipeline import frame, records
 from nrdsample_tpu_torch.render import emissive_is, stress
-from nrdsample_tpu_torch.scene import procedural
+from nrdsample_tpu_torch.scene import procedural, textures
 from nrdsample_tpu_torch.scene.types import look_at
-from torch_session_cache import session_cached, share_cores_between_workers
+from torch_session_cache import declare, session_cached, share_cores_between_workers
 
 share_cores_between_workers()
 
@@ -67,6 +67,9 @@ def _outlier_frac(ref, got):
 @pytest.fixture(scope="module")
 def two_frames(tmp_path_factory):
     return session_cached(tmp_path_factory, "torch_frame_cornell", _two_frames)
+
+
+declare("torch_frame_cornell", lambda _: _two_frames())
 
 
 def _two_frames():
@@ -233,9 +236,9 @@ def test_config_branches_render(name):
 def _scene_variant(name):
     scene = procedural.cornell_box()
     if name == "textures":
-        return dataclasses.replace(scene, textures=object())
+        return textures.textured_scene(scene, res=16)
     if name == "alpha_test":
-        return dataclasses.replace(scene, has_alpha_test=True)
+        return textures.textured_scene(scene, res=64, alpha_materials=(0, 1, 2))
     if name == "instance_scales":
         return dataclasses.replace(scene, tri_instance=torch.zeros(scene.num_tris, dtype=torch.int32),
                                    instance_scales=torch.ones(1, 10))
@@ -282,9 +285,11 @@ def test_later_scene_branches_raise(name):
     """A scene feature of a later slice raises NotImplementedError from
     build_context. Ported since: scenes over 1024 triangles (cluster mode,
     with the hits of brute force), glass (build_scene_contexts splits off a
-    transparent context after the opaque range) and more than 512 emitters
+    transparent context after the opaque range), more than 512 emitters
     (on the CPU the dense plain probe; the emissive ClusterSet is built for
-    the card only)."""
+    the card only), textures and normal maps (an 8x8 frame renders finite
+    and differs from the untextured one) and the alpha test (rays pass the
+    cut-outs of the alpha-tested walls)."""
     if name == "over_1024_tris":
         ctx, scene = traversal.build_context(_scene_variant(name), device="cpu")
         assert ctx.mode == "cluster" and ctx.clusters.count == 9
@@ -306,6 +311,24 @@ def test_later_scene_branches_raise(name):
                                           dim=-1)
         assert em["p0"].shape[0] == 513
         assert torch.equal(emissive_is.light_probe(em, o, d), emissive_probe.light_probe_plain(em, o, d))
+        return
+    if name in ("textures", "alpha_test"):
+        ctx, scene = traversal.build_context(_scene_variant(name), device="cpu")
+        assert scene.textures is not None and scene.has_alpha_test == (name == "alpha_test")
+        cfg = RenderConfig(width=8, height=8)
+        cam = look_at([0, -3, 1], [0, 0, 1], device="cpu")
+        out = frame.render_frame(ctx, scene, cam, cfg, config.Settings(),
+                                 frame.History.create(cfg, "cpu"))[0]["color"]
+        ctx0, scene0 = traversal.build_context(procedural.cornell_box(), device="cpu")
+        plain = frame.render_frame(ctx0, scene0, cam, cfg, config.Settings(),
+                                   frame.History.create(cfg, "cpu"))[0]["color"]
+        assert bool(torch.isfinite(out).all()) and not torch.equal(out, plain)
+        if name == "alpha_test":
+            o = torch.tensor([[0.0, 0.0, 1.0]]).expand(512, 3).contiguous()
+            d = torch.nn.functional.normalize(
+                torch.randn(512, 3, generator=torch.Generator().manual_seed(1)), dim=-1)
+            hit = traversal.closest_hit_alpha(ctx, scene, o, d)
+            assert int((hit["tri"] != traversal.closest_hit(ctx, o, d)["tri"]).sum()) > 0
         return
     with pytest.raises(NotImplementedError):
         traversal.build_context(_scene_variant(name), device="cpu")

@@ -30,7 +30,7 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.denoise import atrous_cuda, taa_cuda, taccum_cuda
 from nrdsample_tpu_torch.ops import dense_cuda, reproject
 from nrdsample_tpu_torch.pipeline import bench_configs, frame
-from torch_session_cache import session_cached, share_cores_between_workers
+from torch_session_cache import declare, session_cached, share_cores_between_workers
 
 share_cores_between_workers()
 
@@ -65,6 +65,9 @@ def _outlier_frac(ref, got):
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
     return session_cached(tmp_path_factory, "torch_frame_kitchen", _frames)
+
+
+declare("torch_frame_kitchen", lambda _: _frames())
 
 
 def _frames():

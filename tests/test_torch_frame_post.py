@@ -30,7 +30,7 @@ from nrdsample_tpu.scene.types import look_at as jlook_at
 from nrdsample_tpu_torch import config, convert
 from nrdsample_tpu_torch.ops import traversal
 from nrdsample_tpu_torch.pipeline import frame
-from torch_session_cache import session_cached, share_cores_between_workers
+from torch_session_cache import declare, session_cached, share_cores_between_workers
 
 share_cores_between_workers()
 
@@ -115,6 +115,10 @@ def cached_frames(tmp_path_factory, case):
     computes = {f"torch_frame_post_{c}": (lambda c=c: _frames(c)) for c in CASES}
     name = f"torch_frame_post_{case}"
     return session_cached(tmp_path_factory, name, computes[name], others=computes)
+
+
+for _case in CASES:
+    declare(f"torch_frame_post_{_case}", lambda _, c=_case: _frames(c))
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))

@@ -26,7 +26,7 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.config import Denoiser, RenderConfig
 from nrdsample_tpu_torch.ops import packet, reproject, traversal
 from nrdsample_tpu_torch.pipeline import frame
-from torch_session_cache import session_cached, share_cores_between_workers
+from torch_session_cache import declare, session_cached, share_cores_between_workers
 
 share_cores_between_workers()
 
@@ -64,6 +64,9 @@ def _outlier_frac(ref, got):
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
     return session_cached(tmp_path_factory, "torch_frame_reblur", _frames)
+
+
+declare("torch_frame_reblur", lambda _: _frames())
 
 
 def _frames():

@@ -27,7 +27,8 @@ from nrdsample_tpu.scene import procedural as jproc
 from nrdsample_tpu_torch.ops import traversal
 from nrdsample_tpu_torch.pipeline import frame, records
 from nrdsample_tpu_torch.scene import procedural
-from torch_session_cache import jax_native_order_ready, session_cached, share_cores_between_workers
+from torch_session_cache import (declare, jax_native_order_ready, session_cached,
+                                 share_cores_between_workers)
 
 share_cores_between_workers()
 
@@ -95,6 +96,10 @@ def record_frames(request, tmp_path_factory):
     computes = _cached(tmp_path_factory)
     name = f"torch_frame_record_{scene_name}_{index}"
     return session_cached(tmp_path_factory, name, computes[name], others=computes)
+
+
+for _r in RECORDS:
+    declare(f"torch_frame_record_{_r[0]}_{_r[1]}", lambda tpf, r=_r: _frames(*r, tpf))
 
 
 @pytest.mark.parametrize("index", range(FRAMES))

@@ -55,7 +55,7 @@ from nrdsample_tpu_torch.render import emissive_is
 from nrdsample_tpu_torch.scene import procedural
 from nrdsample_tpu_torch.scene.types import look_at
 from test_torch_denoise_grad import GRAD_TOL, HIST, _bad, _jax_grads, _torch_grads
-from torch_session_cache import (jax_native_order_ready, session_cached,
+from torch_session_cache import (declare, jax_native_order_ready, session_cached,
                                  share_cores_between_workers)
 
 share_cores_between_workers()
@@ -135,6 +135,10 @@ def _cached(tmp_path_factory, name):
     jax_native_order_ready(tmp_path_factory)
     computes = {"torch_grad_kitchen": _jax_kitchen, "torch_grad_cornell": _jax_cornell}
     return session_cached(tmp_path_factory, name, computes[name], others=computes)
+
+
+declare("torch_grad_kitchen", lambda _: _jax_kitchen(), native_order=True)
+declare("torch_grad_cornell", lambda _: _jax_cornell(), native_order=True)
 
 
 @pytest.fixture(scope="module")

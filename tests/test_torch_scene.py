@@ -113,10 +113,24 @@ def test_convert_camera_settings_history_round_trip():
 
 
 def test_convert_rejects_textures():
+    """A JAX TextureSet's levels carry across bit for bit (textures are
+    ported); the instance leaves of the animate path are still refused."""
+    from nrdsample_tpu.scene import textures as jtextures
+
     leaves = _np_leaves(jproc.cornell_box())
-    leaves["textures"] = {"texels": np.zeros(4, np.float32)}
-    with pytest.raises(NotImplementedError):
-        convert.scene_from_numpy(leaves, device="cpu")
+    maps = [{"base_color": np.random.RandomState(m).rand(8, 8, 4).astype(np.float32)}
+            for m in range(len(leaves["materials"]["flags"]))]
+    ts = jtextures.build_texture_set(maps, res=8)
+    leaves["textures"] = {"levels": [np.asarray(lv) for lv in ts.levels]}
+    got = convert.scene_from_numpy(leaves, device="cpu").textures
+    assert got.n_mips == ts.n_mips == 4 and got.base_res == 8
+    for a, b in zip(got.levels, ts.levels):
+        assert a.dtype == torch.float32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for key in ("tri_instance", "instance_scales"):
+        bad = dict(_np_leaves(jproc.cornell_box()), **{key: np.zeros(4, np.int32)})
+        with pytest.raises(NotImplementedError):
+            convert.scene_from_numpy(bad, device="cpu")
 
 
 def test_record_load_matches_jax():

@@ -35,7 +35,7 @@ from nrdsample_tpu_torch.denoise.reblur import spec_magic_curve
 from nrdsample_tpu_torch.ops import traversal
 from nrdsample_tpu_torch.render import emissive_is, gbuffer, trace_opaque
 from nrdsample_tpu_torch.scene import camera
-from torch_session_cache import session_cached, share_cores_between_workers
+from torch_session_cache import declare, session_cached, share_cores_between_workers
 
 share_cores_between_workers()
 
@@ -159,6 +159,10 @@ def _primary_ties(want_tri, got_tri, origin, direction, tris):
 def traced(request, tmp_path_factory):
     return session_cached(tmp_path_factory, f"torch_trace_{request.param}",
                           lambda: _traced(request.param))
+
+
+for _name in ("cornell", "kitchen"):
+    declare(f"torch_trace_{_name}", lambda _, n=_name: _traced(n))
 
 
 def _traced(name):

@@ -37,7 +37,8 @@ from nrdsample_tpu_torch import convert
 from nrdsample_tpu_torch.denoise import atrous_cuda, taa_cuda, taccum_cuda
 from nrdsample_tpu_torch.ops import dense_cuda, emissive_probe, packet, reproject
 from nrdsample_tpu_torch.pipeline import bench_configs, frame
-from torch_session_cache import jax_native_order_ready, session_cached, share_cores_between_workers
+from torch_session_cache import (declare, jax_native_order_ready, session_cached,
+                                 share_cores_between_workers)
 
 share_cores_between_workers()
 
@@ -74,6 +75,9 @@ def _outlier_frac(ref, got):
 def frames(tmp_path_factory):
     jax_native_order_ready(tmp_path_factory)
     return session_cached(tmp_path_factory, "torch_frame_exterior", _frames)
+
+
+declare("torch_frame_exterior", lambda _: _frames(), native_order=True)
 
 
 def _frames():

@@ -6,9 +6,9 @@ one of its module's tests; the port's frame fixtures (a JAX jit of the whole
 frame beside the port's frame) take minutes each. ``session_cached`` lets the
 first worker compute the value and save it, as numpy arrays, in the
 session's shared temporary directory (the parent of every worker's
-``basetemp``), under an ``fcntl`` lock; the other workers wait on the lock
-and load it, or, given the other values their tests need, compute one of
-those meanwhile. Torch tensors come back as CPU torch tensors, JAX arrays as
+``basetemp``), under an ``fcntl`` lock; the other workers load it, and one
+that finds it being computed first computes a value that its own tests or
+another module's (``declare``) need and no worker has started. Torch tensors come back as CPU torch tensors, JAX arrays as
 numpy arrays. Without xdist the value is simply computed.
 
 ``jax_native_order_ready`` makes sure that the JAX package's cluster builds,
@@ -28,6 +28,7 @@ import fcntl
 import os
 import pickle
 import time
+import traceback
 
 import numpy as np
 import pytest
@@ -111,20 +112,52 @@ def _save_if_free(root, name: str, compute) -> bool:
         return True
 
 
+_DECLARED: dict = {}
+
+
+def declare(name: str, compute, native_order: bool = False):
+    """Declare, when a test module is imported, a value that its fixtures
+    fetch with ``session_cached(..., name, ...)``: compute(tmp_path_factory)
+    gives it (after ``jax_native_order_ready`` with ``native_order``). Every
+    xdist worker imports every test module, so each knows all declared
+    values; a worker that finds the value it needs being computed by another
+    computes a declared one that no worker has saved or started, the last
+    declared first, rather than wait idle on the lock."""
+    _DECLARED[name] = (compute, native_order)
+
+
+def _declared(tmp_path_factory) -> dict:
+    def run(fn, native_order):
+        if native_order:
+            jax_native_order_ready(tmp_path_factory)
+        return fn(tmp_path_factory)
+
+    return {k: (lambda fn=fn, n=n: run(fn, n)) for k, (fn, n) in _DECLARED.items()}
+
+
 def session_cached(tmp_path_factory, name: str, compute, others: dict | None = None):
     """compute() once per session across xdist workers; see the module
     docstring. ``others``, {name: compute} of the values the same tests need
-    besides this one, lets a worker that finds this value being computed
-    by another worker compute one of those that no worker has saved or
-    started, rather than wait idle on the lock."""
+    besides this one, and then the values other modules ``declare``, let a
+    worker that finds this value being computed by another worker compute
+    one of those that no worker has saved or started, rather than wait idle
+    on the lock."""
     if os.environ.get("PYTEST_XDIST_WORKER") is None:
         return compute()
     root = tmp_path_factory.getbasetemp().parent
-    pending = [(k, fn) for k, fn in (others or {}).items() if k != name]
+    candidates = dict(others or {})
+    # the values declared last first: their modules run last (collection
+    # order), so computing them now shortens the run's tail
+    for k, fn in reversed(_declared(tmp_path_factory).items()):
+        candidates.setdefault(k, fn)
+    pending = [(k, fn) for k, fn in candidates.items() if k != name]
     while pending and not _save_if_free(root, name, compute):
         other, fn = pending.pop(0)
         if not (root / f"{other}.pkl").exists():
-            _save_if_free(root, other, fn)
+            try:
+                _save_if_free(root, other, fn)
+            except Exception:   # noqa: BLE001 -- the value's own tests compute it and report
+                traceback.print_exc()
     with _session_lock(tmp_path_factory, name):
         with open(_save_once(root, name, compute), "rb") as f:
             value = pickle.load(f)
