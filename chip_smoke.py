@@ -40,7 +40,13 @@ on shaderballs512, through the resident packet kernel; (G) the 1.06M-
 triangle exterior720 written with ``save_glb``, loaded back with
 ``load_gltf`` and rendered through the streaming kernel beside the
 procedural frame, and a small textured .gltf with a PNG of
-``utils/image``; (R) the 19 record goldens replayed on the card), and
+``utils/image``; (R) the 19 record goldens replayed on the card), then the
+animate path (phase 10: 512 cubes on their orbits at 1920x1080 with RELAX,
+moved and refit on the card every frame, timed, each kernel call of a
+frame against its plain version, the resident packet kernel on the refit
+slab among them; a DRS run over a fixed bucket schedule; ``cli animate``;
+card against CPU at 96x96; and where shaderballs512's REBLUR trace at 64x64
+parts between the card and the CPU, call by call), and
 prints one JSON line of kernels plus a final ``{"ok": true, "device": ...}``
 line. Any failed phase exits non-zero
 with no result line. It also runs the backward of the three denoiser
@@ -205,13 +211,23 @@ def once_ms(fn):
 def device_busy_ms(fn) -> tuple[float, int]:
     """(device ms, kernels) of one call of fn() under torch.profiler: the
     summed durations of its CUDA kernels (one stream, no overlap)."""
+    return device_profile(fn)[:2]
+
+
+def device_profile(fn) -> tuple[float, int, dict]:
+    """``device_busy_ms`` and {kernel name: (ms, launches)} of one call of
+    fn()."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    by_name = {}
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name not in ("trace_frame", "image_frame")]
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels), by_name
 
 
 def nan_mismatch(ref: torch.Tensor, got: torch.Tensor) -> tuple[int, int, int, float, float]:
@@ -1600,6 +1616,390 @@ def check_goldens(dev, card: str) -> dict:
     return {"worst": worst, "n": len(ids)}
 
 
+ANIM_CUBES = 512                  # GenerateAnimatedCubes' pool (NRDSample.cpp:2280-2301)
+ANIM_W, ANIM_H = 1920, 1080
+ANIM_WARMUP, ANIM_FRAMES = 2, 8
+DRS_SCHEDULE = (1.0, 1.0, 0.5, 0.5, 1.0)   # fixed buckets: the run does not depend on timing
+ANIM_SMALL = dict(res=96, cubes=24, frames=3)   # card against CPU
+CLI_ANIMATE = ["animate", "--size", "256", "--cubes", "512", "--frames", "6"]
+
+
+def check_animate(dev, card: str, launches: dict, reset_counts, counters: dict) -> dict:
+    """Phase 10, the animate path (``pipeline/animate.py``): (A) 512 cubes on
+    their orbits over the ground box at 1920x1080 with RELAX, each frame
+    transformed and refit on the card: ANIM_WARMUP frames, then ANIM_FRAMES
+    timed ones (wall ms each, the refit's ms, launches), one more under the
+    profiler (device-busy ms, the packet kernel's ms and launches), peak
+    memory; then one frame with every kernel call recorded and held against
+    its plain version on its own inputs, the resident packet kernel on the
+    refit slab among them. (B) DRS on the same scene over the fixed bucket
+    schedule DRS_SCHEDULE: the history resampled on the card at each switch,
+    the display at 1920x1080 and finite, the frame index counting every
+    frame. (C) ``cli animate`` as a subprocess. (D) card against CPU at
+    96x96 with 24 cubes over 3 frames, the motion plane included (PERF.md
+    §2), and the history resampled after a switch from the same input
+    within KERNEL_TOL. Adds (A)'s timed launches to ``launches``."""
+    import dataclasses
+    import tempfile
+
+    from nrdsample_tpu_torch.config import make_settings
+    from nrdsample_tpu_torch.denoise import atrous_cuda, taa_cuda, taccum_cuda
+    from nrdsample_tpu_torch.mathlib import color
+    from nrdsample_tpu_torch.ops import packet, reproject
+    from nrdsample_tpu_torch.pipeline import adaptive, animate, drs, frame
+
+    summary = {}
+    t0 = time.perf_counter()
+    anim = animate.build(ANIM_CUBES, dev, aspect=ANIM_W / ANIM_H)
+    cfg = dataclasses.replace(animate.render_config(ANIM_H), width=ANIM_W, height=ANIM_H)
+    settings = adaptive.update(make_settings(dev, sun_elevation=animate.SUN_ELEVATION), None,
+                               adaptive.FrameTimer().smoothed_ms)
+    cs0 = anim.ctx.clusters
+    setup_s = time.perf_counter() - t0
+    hist = frame.History.create(cfg, dev)
+    f = 0
+    for _ in range(ANIM_WARMUP):
+        out, hist = animate.render(anim, cfg, settings, hist, *animate.frame_times(f))
+        f += 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    wall, refit, per_frame = [], [], []
+    for _ in range(ANIM_FRAMES):
+        t, t_prev = animate.frame_times(f)
+        before = {k: count_of(m) for k, m in counters.items()}
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        out, hist = animate.render(anim, cfg, settings, hist, t, t_prev)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - a) * 1e3)
+        per_frame.append({k: count_of(m) - before[k] for k, m in counters.items()})
+        refit.append(once_ms(lambda: animate.pose(anim, t))[0])
+        f += 1
+    peak = torch.cuda.max_memory_allocated(dev)
+    for k, m in counters.items():
+        launches[k] = launches.get(k, 0) + count_of(m)
+    t, t_prev = animate.frame_times(f)
+    busy, n_kernels, by_name = device_profile(
+        lambda: animate.render(anim, cfg, settings, hist, t, t_prev))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    pk = [v for k, v in by_name.items() if "packet" in k]
+    packet_ms, packet_n = sum(v[0] for v in pk), sum(v[1] for v in pk)
+    lum = float(color.luminance(out["color"]).mean())
+    world, ctx2, _ = animate.pose(anim, t)
+    print(f"[animate] {ANIM_CUBES} cubes, {len(anim.ctx.order)} triangles in "
+          f"{ctx2.clusters.count} clusters, {cfg.width}x{cfg.height} RELAX, set up in "
+          f"{setup_s:.1f} s: wall ms/frame over {ANIM_FRAMES} frames after {ANIM_WARMUP} warm-up "
+          + ", ".join(f"{x:.3f}" for x in wall)
+          + f" (median {statistics.median(wall):.3f}); transform + refit ms "
+          + ", ".join(f"{x:.3f}" for x in refit)
+          + f"; one more frame: device busy {busy:.3f} ms in {n_kernels} kernels, the packet "
+          f"kernel {packet_ms:.3f} ms over {packet_n} launches, idle share "
+          f"{1.0 - busy / statistics.median(wall):.3f}; peak memory {peak} B, mean luminance "
+          f"{lum:.6g}, launches/frame {per_frame[-1]} ({card})")
+    print("[animate] the frame's largest kernels (device ms, launches): "
+          + "; ".join(f"{k[:60]} {v[0]:.3f} x{v[1]}" for k, v in top))
+    if not bool(torch.isfinite(out["color"]).all()) or not lum > 0.0:
+        fail("the animated frame is not finite with a positive mean luminance")
+    need = ("packet_hit", "bilinear_sample", "relax_taccum", "relax_atrous")
+    if not all(p[k] > 0 for p in per_frame for k in need):
+        fail(f"an animated frame did not launch all of {need}: {per_frame}")
+    if torch.equal(ctx2.clusters.bounds_min, cs0.bounds_min) or ctx2.clusters.slab.device != dev:
+        fail("the refit left the cluster boxes at the rest pose, or off the card")
+    mv = out["gbuffer"]["mv"]
+    moving = int((mv[:, :2].abs().amax(dim=-1) > 1e-3).sum())
+    if moving == 0:
+        fail("no pixel of the animated frame moves")
+    summary["A"] = dict(wall=wall, refit=refit, busy=busy, kernels=n_kernels,
+                        packet=(packet_ms, packet_n), peak=peak, launches=per_frame[-1],
+                        moving=moving)
+
+    # every kernel call of one animated frame against its plain version
+    specs = {"packet_hit": (packet, "closest_hit_packet_cuda", keep_rays),
+             "bilinear_sample": (reproject, "sample_bilinear_cuda", keep_planes),
+             "relax_taccum": (taccum_cuda, "taccum_variance_cuda", keep_planes),
+             "relax_atrous": (atrous_cuda, "atrous_iteration_cuda", keep_planes),
+             "taa_resolve": (taa_cuda, "taa_resolve_cuda", keep_planes)}
+    need_rec = tuple(k for k in specs if per_frame[-1].get(k, 0) > 0)
+    m_prev = animate.transforms(anim.pool, t_prev)
+    with recording({k: specs[k] for k in need_rec}) as calls:
+        before = {k: count_of(counters[k]) for k in need_rec}
+        frame.render_frame(ctx2, world, anim.cam, cfg, settings, hist,
+                           dynamics=(anim.inst, animate.transforms(anim.pool, t), m_prev))
+        recorded = {k: count_of(counters[k]) - before[k] for k in need_rec}
+    torch.cuda.synchronize()
+    summary["errs"] = check_frame_calls(calls, recorded, ctx2.clusters, world, card,
+                                        label="animated")
+    del calls, out, hist, world, ctx2
+    torch.cuda.empty_cache()
+
+    # (B) DRS over a fixed bucket schedule
+    cur = drs.bucket_cfg(cfg, DRS_SCHEDULE[0])
+    hist = frame.History.create(cur, dev)
+    steps = []
+    for i, scale in enumerate(DRS_SCHEDULE):
+        nxt = drs.bucket_cfg(cfg, scale)
+        resize_ms = 0.0
+        if nxt != cur:
+            resize_ms, hist = once_ms(lambda: drs.resize_history(hist, cur, nxt))
+            cur = nxt
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        out, hist = animate.render(anim, cur, settings, hist, *animate.frame_times(i))
+        torch.cuda.synchronize()
+        disp = out["display"]
+        steps.append((cur.width, cur.height, (time.perf_counter() - a) * 1e3, resize_ms))
+        if tuple(disp.shape) != (ANIM_H, ANIM_W, 3) or not bool(torch.isfinite(disp).all()):
+            fail(f"DRS frame {i} at {cur.width}x{cur.height}: the display is not a finite "
+                 f"{ANIM_W}x{ANIM_H} image")
+    print(f"[animate DRS] schedule {DRS_SCHEDULE}: frames (render size, wall ms, history "
+          f"resize ms) " + "; ".join(f"{w}x{h} {ms:.3f} {r:.3f}" for w, h, ms, r in steps)
+          + f"; frame_index {int(hist.frame_index)}, display {tuple(disp.shape)} ({card})")
+    if int(hist.frame_index) != len(DRS_SCHEDULE) or hist.relax_diff.illum.device != dev:
+        fail("the DRS run's history lost frames or left the card")
+    summary["B"] = steps
+    del anim, hist, out, disp
+    torch.cuda.empty_cache()
+
+    # (C) the CLI as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "animate.png")
+        a = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "nrdsample_tpu_torch.cli", *CLI_ANIMATE,
+                            "--out", png], cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - a
+        print(f"[animate] python -m nrdsample_tpu_torch.cli {' '.join(CLI_ANIMATE)}: rc "
+              f"{r.returncode} in {cli_s:.1f} s; " + " | ".join(
+                  (r.stderr.strip().splitlines() or [""])[-1:] + r.stdout.strip().splitlines()))
+        if r.returncode != 0 or not os.path.exists(png) or png_size(png) != (256, 256):
+            fail(f"cli animate failed or wrote no 256x256 PNG: {r.stderr[-2000:]}")
+    summary["C"] = cli_s
+
+    # (D) card against CPU at a small size
+    res, cubes, frames = ANIM_SMALL["res"], ANIM_SMALL["cubes"], ANIM_SMALL["frames"]
+    outs, hists = {}, {}
+    small = animate.render_config(res)
+    for where in (dev, "cpu"):
+        an = animate.build(cubes, where)
+        st = adaptive.update(make_settings(where, sun_elevation=animate.SUN_ELEVATION), None,
+                             adaptive.FrameTimer().smoothed_ms)
+        h = frame.History.create(small, where)
+        for i in range(frames):
+            o, h = animate.render(an, small, st, h, *animate.frame_times(i))
+        outs[where], hists[where] = dict({k: o[k] for k in RECORD_PLANES},
+                                         mv=o["gbuffer"]["mv"]), h
+    worst = max((*frame_mismatch(outs["cpu"][k], outs[dev][k]), k) for k in outs["cpu"])
+    rel = max(frame_mismatch(outs["cpu"][k], outs[dev][k])[1] for k in ("color", "final"))
+    # the resampling from one input: the CPU's history after 3 frames
+    half = drs.bucket_cfg(small, 0.5)
+    want = drs.resize_history(hists["cpu"], small, half)
+    got = drs.resize_history(to_device(hists["cpu"], dev), small, half)
+    errs = []
+    for k in ("relax_diff", "relax_spec", "sigma"):
+        for fld in dataclasses.fields(getattr(want, k)):
+            e, ok = max_err(getattr(getattr(got, k), fld.name).cpu().float(),
+                            getattr(getattr(want, k), fld.name).float())
+            errs.append(e)
+            if not ok:
+                fail(f"the card's resized history differs from the CPU's ({k}.{fld.name})")
+    print(f"[card vs cpu] animate at {res}x{res}, {cubes} cubes, {frames} frames: worst outlier "
+          f"share {worst[0]:.6f} ({worst[2]}), color and final mean gap {rel:.3g} (rel); the "
+          f"history resized to {half.width}x{half.height} from the CPU's: max|err| "
+          f"{max(errs):.3g}")
+    if worst[0] > FRAME_OUTLIER_FRAC or rel > FRAME_MEAN_REL:
+        fail("the card's animated frame disagrees with the CPU frame")
+    summary["D"] = (worst, rel, max(errs))
+    return summary
+
+
+PIXEL_RES = 64    # shaderballs512's REBLUR config whose roughness gradient left the gate (PR 10)
+HIGHLIGHT_PIXEL = (29, 13)   # (y, x) of the sun highlight that carries its card-vs-CPU gap
+
+
+def check_reblur_pixel(dev, card: str) -> dict:
+    """Where the card's and the CPU's traces of shaderballs512's REBLUR
+    config at 64x64 part. Every ``traversal.closest_hit`` and ``any_hit``
+    call of one trace_frame is recorded on both devices, in order. For each
+    call: the rays whose inputs (origin, direction, t_max) differ in any
+    bit between the two, and the rays whose result differs (tri, or
+    blocked) split into those with bit-equal inputs, each of which must be
+    a tie proven in float64 (``t64``: both triangles' distances within
+    1e-6 relative; else the packet kernel is at fault and this fails), and
+    those whose inputs already differ. The resident kernel's calls are also
+    held against the plain scan on the card's own inputs
+    (``check_frame_calls``)."""
+    from nrdsample_tpu_torch.ops import packet, traversal
+    from nrdsample_tpu_torch.pipeline import bench_configs, frame
+
+    def keep(i, a, out):
+        n = a["origin"].shape[0]
+        tm = torch.as_tensor(a["t_max"], dtype=torch.float32, device=a["origin"].device)
+        return dict(o=a["origin"].detach().cpu(), d=a["direction"].detach().cpu(),
+                    t_max=tm.expand(n).cpu(),
+                    out=({k: v.cpu() for k, v in out.items()} if isinstance(out, dict)
+                         else out.cpu()))
+
+    rec, pk_calls = {}, None
+    for where in ("cpu", dev):
+        ctx, scene, cam, cfg, settings = bench_configs.setup(
+            "shaderballs512", where, width=PIXEL_RES, height=PIXEL_RES)
+        specs = {"closest_hit": (traversal, "closest_hit", keep),
+                 "any_hit": (traversal, "any_hit", keep)}
+        if where != "cpu":
+            specs["packet_hit"] = (packet, "closest_hit_packet_cuda", keep_rays)
+        with recording(specs) as calls:
+            before = packet.LAUNCHES
+            gb, _ = frame.trace_frame(ctx, scene, cam, cfg, settings,
+                                      frame.History.create(cfg, where))
+            n_launch = packet.LAUNCHES - before
+        rec[where] = (calls, {k: v.cpu() for k, v in gb.items() if torch.is_tensor(v)})
+        if where != "cpu":
+            pk_calls = calls.pop("packet_hit")
+            torch.cuda.synchronize()
+            errs = check_frame_calls({"packet_hit": pk_calls}, {"packet_hit": n_launch},
+                                     ctx.clusters, scene, card, label="shaderballs512 at 64x64")
+            tris = {k: getattr(scene.tris, k).cpu().numpy() for k in ("p0", "e1", "e2")}
+    cpu_calls, cpu_gb = rec["cpu"]
+    dev_calls, dev_gb = rec[dev]
+    lines, faults, tie_rays, input_rays = [], 0, 0, 0
+    for name in ("closest_hit", "any_hit"):
+        if len(cpu_calls[name]) != len(dev_calls[name]):
+            fail(f"the CPU made {len(cpu_calls[name])} {name} calls, the card "
+                 f"{len(dev_calls[name])}")
+        for i, (a, b) in enumerate(zip(cpu_calls[name], dev_calls[name])):
+            same_in = ((a["o"] == b["o"]).all(-1) & (a["d"] == b["d"]).all(-1)
+                       & (a["t_max"] == b["t_max"]))
+            if name == "closest_hit":
+                differ = a["out"]["tri"] != b["out"]["tri"]
+            else:
+                differ = a["out"] != b["out"]
+            eq_diff = torch.nonzero(differ & same_in).flatten().numpy()
+            ties = 0
+            for j in eq_diff:
+                if name != "closest_hit":
+                    faults += 1
+                    continue
+                ta = t64(a["o"][j].numpy(), a["d"][j].numpy(), tris, int(a["out"]["tri"][j]))
+                tb = t64(a["o"][j].numpy(), a["d"][j].numpy(), tris, int(b["out"]["tri"][j]))
+                tie = (a["out"]["tri"][j] >= 0 and b["out"]["tri"][j] >= 0
+                       and abs(ta - tb) <= 1e-6 * max(abs(tb), 1.0))
+                ties += tie
+                faults += not tie
+            tie_rays += ties
+            input_rays += int((differ & ~same_in).sum())
+            lines.append(f"{name} #{i} N={a['o'].shape[0]}: inputs differ on "
+                         f"{int((~same_in).sum())}, results differ on {int(differ.sum())} "
+                         f"({len(eq_diff)} with equal inputs, {ties} of them float64 ties)")
+    px = {}
+    for k in ("view_z", "normal", "roughness", "spec_hitdist", "diff_hitdist"):
+        if k in cpu_gb and k in dev_gb:
+            ref, got = cpu_gb[k].reshape(cpu_gb[k].shape[0], -1), dev_gb[k].reshape(
+                dev_gb[k].shape[0], -1)
+            bad = torch.nonzero(((ref - got).abs() > 1e-3 * (1.0 + ref.abs())).any(-1)).flatten()
+            px[k] = bad.tolist()[:8]
+    print("[reblur pixel] shaderballs512 REBLUR at 64x64, trace_frame card against CPU, call by "
+          "call: " + "; ".join(lines))
+    print(f"[reblur pixel] result differences on bit-equal inputs: {tie_rays} float64 ties, "
+          f"{faults} not ties; on inputs that already differ: {input_rays}; G-buffer pixels off "
+          f"by more than 1e-3 (1 + |ref|): {px} ({card})")
+    if faults:
+        fail(f"{faults} rays with bit-equal inputs hit other triangles on the card than on the "
+             "CPU, and no float64 tie explains it: a packet kernel fault")
+    return dict(ties=tie_rays, input_rays=input_rays, pixels=px, errs=errs)
+
+
+def check_reblur_gradient(dev, card: str) -> dict:
+    """shaderballs512's REBLUR config at 64x64: one step's material
+    gradients card against CPU (the case PR 10 left out of phase 8's (D)),
+    each field's largest gap over its largest |CPU entry|; the forward
+    planes card against CPU; and, where a field is past GRAD_TOL, the
+    pixels whose loss carries the gap (the loss cut to 16 blocks of the
+    image, then 16 sub-blocks of the worst, then its 16 pixels; skipped
+    where HIGHLIGHT_PIXEL alone carries nine tenths of the gap)."""
+    from nrdsample_tpu_torch.pipeline import bench_configs, frame, train
+
+    setups, grads = {}, {}
+    for where in ("cpu", dev):
+        setups[where] = bench_configs.setup("shaderballs512", where, width=PIXEL_RES,
+                                            height=PIXEL_RES)
+
+    def vag(where, weight=None):
+        ctx, scene, cam, cfg, settings = setups[where]
+        diff, rest = train.split_materials(scene.materials)
+        w = None if weight is None else weight.to(where)
+
+        def loss_fn(md, mr, *args):
+            color, _ = train.render_color(ctx, cfg, train.merge_materials(md, mr), scene, cam,
+                                          settings, frame.History.create(cfg, where))
+            sq = color * color
+            return torch.sum(sq if w is None else sq * w[:, None])
+
+        return {k: g.cpu() for k, g in train.value_and_grad(loss_fn, diff, rest)[1].items()}
+
+    for where in ("cpu", dev):
+        grads[where] = vag(where)
+    scale = {k: float(v.abs().max()) for k, v in grads["cpu"].items()}
+
+    def gaps(g_cpu, g_dev):
+        return {k: float((g_dev[k] - g_cpu[k]).abs().max()) / max(scale[k], 1e-30) for k in g_cpu}
+
+    full = gaps(grads["cpu"], grads[dev])
+    outs = {}
+    for where in ("cpu", dev):
+        ctx, scene, cam, cfg, settings = setups[where]
+        with torch.no_grad():
+            outs[where] = frame.render_frame(ctx, scene, cam, cfg, settings,
+                                             frame.History.create(cfg, where))[0]
+    planes = {}
+    for k in RECORD_PLANES:
+        ref, got = outs["cpu"][k].double().cpu(), outs[dev][k].double().cpu()
+        ref, got = ref.reshape(ref.shape[0], -1), got.reshape(got.shape[0], -1)
+        rel = ((ref - got).abs() / (1.0 + ref.abs())).amax(dim=-1)
+        planes[k] = (float(rel.max()), int(rel.argmax()))
+    print("[reblur gradient] shaderballs512 REBLUR at 64x64, card against CPU, largest gap over "
+          "the field's largest |CPU entry|: " + ", ".join(f"{k} {v:.3g}" for k, v in full.items())
+          + "; forward planes, largest |card - CPU| / (1 + |CPU|) (pixel): "
+          + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in planes.items()) + f" ({card})")
+    found = None
+    if max(full.values()) > GRAD_TOL:
+        n = PIXEL_RES * PIXEL_RES
+        ys, xs = torch.div(torch.arange(n), PIXEL_RES, rounding_mode="floor"), torch.arange(n) % PIXEL_RES
+        y0, x0 = HIGHLIGHT_PIXEL
+        mask = ((ys == y0) & (xs == x0)).float()
+        alone = max(gaps(vag("cpu", mask), vag(dev, mask)).values())
+        print(f"[reblur gradient] the loss of pixel {HIGHLIGHT_PIXEL} alone: gap {alone:.3g} of "
+              f"the whole image's {max(full.values()):.3g}")
+        size = 1 if alone >= 0.9 * max(full.values()) else PIXEL_RES
+        if size > 1:
+            y0, x0 = 0, 0
+        while size > 1:
+            size //= 4
+            trials = []
+            for by in range(4):
+                for bx in range(4):
+                    ya, xa = y0 + by * size, x0 + bx * size
+                    mask = ((ys >= ya) & (ys < ya + size) & (xs >= xa) & (xs < xa + size)).float()
+                    gap = max(gaps(vag("cpu", mask), vag(dev, mask)).values())
+                    trials.append((gap, ya, xa))
+            trials.sort(reverse=True)
+            print(f"[reblur gradient] {size}x{size} blocks, largest gaps (gap, y, x): "
+                  + ", ".join(f"({g:.3g}, {y}, {x})" for g, y, x in trials[:4]))
+            _, y0, x0 = trials[0]
+        found = y0 * PIXEL_RES + x0
+
+        def at(where, k):
+            v = outs[where][k] if k in outs[where] else outs[where]["gbuffer"][k]
+            return v.reshape(n, -1)[found].cpu().tolist()
+
+        keys = [k for k in ("color", "diff_radiance", "spec_radiance", "direct_lighting",
+                            "emission", "diff_factor", "spec_factor", "shadow", "roughness",
+                            "metalness", "normal", "view_z", "psr_throughput", "l_psr")
+                if k in outs["cpu"] or k in outs["cpu"]["gbuffer"]]
+        print(f"[reblur gradient] the pixel (y {y0}, x {x0}), index {found}, CPU then card: "
+              + "; ".join(f"{k} {at('cpu', k)} {at(dev, k)}" for k in keys))
+    return dict(full=full, planes=planes, pixel=found)
+
+
 def main() -> int:
     import argparse
 
@@ -2608,6 +3008,21 @@ def main() -> int:
     for k, e in textured["shaderballs512"]["errs"].items():
         frame_err[k] = max(frame_err.get(k, 0.0), e)
 
+    # ---- 10. the animate path: 512 orbiting cubes refit on the card each
+    # frame at 1920x1080 with RELAX, the DRS schedule, cli animate, card
+    # against CPU; and where shaderballs512's REBLUR trace parts between the
+    # card and the CPU ----
+    t0 = time.perf_counter()
+    animated = check_animate(dev, card, launches, reset_counts, asset_counters)
+    t1 = time.perf_counter()
+    pixel = check_reblur_pixel(dev, card)
+    pixel["gradient"] = check_reblur_gradient(dev, card)
+    print(f"[animate path] phase in {t1 - t0:.1f} s, the REBLUR trace check in "
+          f"{time.perf_counter() - t1:.1f} s")
+    for errs in (animated["errs"], pixel["errs"]):
+        for k, e in errs.items():
+            frame_err[k] = max(frame_err.get(k, 0.0), e)
+
     dense = results[("dense", "kitchen", "per-ray")]
     prim = packet_res["primary"]
     bil = bil_res[(9, "3")]
@@ -2715,6 +3130,16 @@ def main() -> int:
           f"{gltf_res['exterior'][2]:.6f}, mean luminance gap {gltf_res['exterior'][3]:.3g}; "
           f"(R) {goldens['n']} goldens, worst tile error {goldens['worst'][1]:.4g} of "
           f"{goldens['worst'][2]:.4g} ({goldens['worst'][0]}) ({card})")
+    an = animated["A"]
+    print(f"[animate summary] {ANIM_CUBES} cubes at {ANIM_W}x{ANIM_H} RELAX: wall ms/frame median "
+          f"{statistics.median(an['wall']):.3f} (min {min(an['wall']):.3f}, max "
+          f"{max(an['wall']):.3f}), device busy {an['busy']:.3f} ms, the packet kernel "
+          f"{an['packet'][0]:.3f} ms over {an['packet'][1]} launches, transform + refit median "
+          f"{statistics.median(an['refit']):.3f} ms, peak {an['peak']} B, launches/frame "
+          f"{an['launches']}; DRS frames " + ", ".join(
+              f"{w}x{h} {ms:.1f} ms" for w, h, ms, _ in animated["B"])
+          + f"; cli animate {animated['C']:.1f} s; card vs CPU worst outlier share "
+          f"{animated['D'][0][0]:.6f}, resized history max|err| {animated['D'][2]:.3g} ({card})")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

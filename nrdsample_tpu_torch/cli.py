@@ -3,13 +3,18 @@ headless frame driver.
 
     python -m nrdsample_tpu_torch.cli render --scene cornellbox --size 256 \\
         --frames 16 --bounces 3 --denoiser reference --out render.png
+    python -m nrdsample_tpu_torch.cli animate --size 128 --frames 24 --cubes 12
     python -m nrdsample_tpu_torch.cli optimize --scene cornellbox --size 48 --iters 200
     python -m nrdsample_tpu_torch.cli scenes
 
-``render`` and ``optimize`` run on the CUDA card; ``--cpu`` runs the plain
-PyTorch versions on the CPU instead. ``render`` writes the debug view
+``render``, ``animate`` and ``optimize`` run on the CUDA card; ``--cpu`` runs
+the plain PyTorch versions on the CPU instead. ``render`` writes the debug view
 (``--on-screen``), else the post chain's display image (``--upscale``,
 ``--nis`` or ``--separator``), else the tonemapped final image, as a PNG.
+``animate`` renders cubes on orbits over a ground box, the clusters refit on
+the device each frame and the cubes' motion vectors their true motion
+(``pipeline/animate.py``), with adaptive accumulation and, with
+``--drs-target-ms``, dynamic resolution; it writes the last frame as a PNG.
 ``optimize`` perturbs the scene's albedos, recovers them by SGD through
 ``pipeline/train.make_train_step`` and ends with a JSON line.
 """
@@ -125,6 +130,64 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_animate(args) -> int:
+    """Animated render: orbiting cubes over a ground box (AnimatedInstance and
+    GatherInstanceData, NRDSample.cpp:304-333, 3395-3630). Each frame the
+    adaptive accumulation cap follows the smoothed frame time; with
+    --drs-target-ms the DRS controller picks the next frame's bucket and a
+    switch resamples the history."""
+    import numpy as np
+    import torch
+
+    from nrdsample_tpu_torch.config import make_settings
+    from nrdsample_tpu_torch.device import resolve
+    from nrdsample_tpu_torch.pipeline import adaptive, animate, drs, frame as frame_mod
+    from nrdsample_tpu_torch.utils import image as image_mod
+
+    device = resolve("cpu" if args.cpu else None)
+    anim = animate.build(args.cubes, device)
+    cfg = animate.render_config(args.size, args.denoiser)
+    settings = make_settings(device, sun_elevation=animate.SUN_ELEVATION)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    ctrl = drs.DrsController(args.drs_target_ms) if args.drs_target_ms > 0 else None
+    cur_cfg = drs.bucket_cfg(cfg, ctrl.scale) if ctrl else cfg
+    hist = frame_mod.History.create(cur_cfg, device)
+    timer = adaptive.FrameTimer()
+    prev_settings = None
+    out = None
+    sync()
+    t0 = time.perf_counter()
+    for f in range(args.frames):
+        tf0 = time.perf_counter()
+        settings = adaptive.update(settings, prev_settings, timer.smoothed_ms)
+        prev_settings = settings
+        out, hist = animate.render(anim, cur_cfg, settings, hist, *animate.frame_times(f))
+        sync()
+        frame_ms = (time.perf_counter() - tf0) * 1e3
+        if f > 0:
+            timer.update(frame_ms)
+        if ctrl is not None:
+            next_cfg = drs.bucket_cfg(cfg, ctrl.update(frame_ms))
+            if next_cfg != cur_cfg:
+                print(f"frame {f}: DRS -> {next_cfg.width}x{next_cfg.height}", file=sys.stderr)
+                hist = drs.resize_history(hist, cur_cfg, next_cfg)
+                cur_cfg = next_cfg
+    dt = time.perf_counter() - t0
+    print(f"{args.frames} animated frames in {dt:.2f}s ({dt / args.frames * 1e3:.1f} ms/frame)",
+          file=sys.stderr)
+    if ctrl is not None:
+        img = out["display"].cpu().numpy()
+    else:
+        img = out["final"].cpu().numpy().reshape(args.size, args.size, 3)
+    image_mod.write_png(args.out, image_mod.tonemap_for_display(img, 0.6))
+    print(f"wrote {args.out}")
+    return 0
+
+
 def cmd_optimize(args) -> int:
     """Inverse rendering: recover perturbed material albedos from a target
     render. Prints the albedo error every iters // 10 steps and one last
@@ -231,6 +294,19 @@ def main(argv=None) -> int:
                         "ambient-occlusion, denoised-diffuse, sharc-cache, sharc-grid, "
                         "taa-weight, ...")
     r.set_defaults(fn=cmd_render)
+
+    a = sub.add_parser("animate", help="animated orbiting-cubes demo (device-side refit)")
+    a.add_argument("--size", type=int, default=128)
+    a.add_argument("--frames", type=int, default=24)
+    a.add_argument("--cubes", type=int, default=12)
+    a.add_argument("--denoiser", default="relax", choices=["reblur", "relax", "reference"])
+    a.add_argument("--out", default="animate.png")
+    a.add_argument("--drs-target-ms", type=float, default=0.0,
+                   help="dynamic resolution: the target frame time in ms (bucketed render "
+                        "size, pipeline/drs.py; 0 = off)")
+    a.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the plain PyTorch versions) instead of the CUDA card")
+    a.set_defaults(fn=cmd_animate)
 
     o = sub.add_parser("optimize", help="inverse-rendering demo (recover albedo)")
     o.add_argument("--scene", default="cornellbox", choices=list(DEFAULT_CAMERAS))

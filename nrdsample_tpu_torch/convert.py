@@ -26,6 +26,8 @@ from nrdsample_tpu_torch.ops.sharc import SharcState
 from nrdsample_tpu_torch.pipeline.frame import History
 from nrdsample_tpu_torch.post.neural_rr import NeuralRRHistory
 from nrdsample_tpu_torch.render.l1cache import L1History
+from nrdsample_tpu_torch.scene.animation import OrbitPool
+from nrdsample_tpu_torch.scene.instances import InstancedScene
 from nrdsample_tpu_torch.scene.textures import TextureSet
 from nrdsample_tpu_torch.scene.types import Camera, Materials, Scene, TriangleSoA
 
@@ -46,12 +48,8 @@ def scene_from_numpy(d: dict, device=None) -> Scene:
     """d: {"tris": {TriangleSoA field: array}, "materials": {Materials field:
     array}, "emissive_tris", "emissive_count", optional "has_emissive",
     "has_alpha_test", "textures" ({"levels": [(M, h, w, 10) array per mip
-    level]}, a TextureSet's leaves), "tri_instance", "instance_scales"}. The
-    instance leaves raise NotImplementedError (the animate path)."""
+    level]}, a TextureSet's leaves), "tri_instance", "instance_scales"}."""
     device = resolve(device)
-    for key in ("tri_instance", "instance_scales"):
-        if d.get(key) is not None:
-            raise NotImplementedError(f"scene leaf {key!r} is ported in a later slice")
     count = np.asarray(d["emissive_count"])
     textures = d.get("textures")
     if textures is not None:
@@ -64,6 +62,29 @@ def scene_from_numpy(d: dict, device=None) -> Scene:
         has_emissive=bool(d.get("has_emissive", int(count) > 0)),
         has_alpha_test=bool(d.get("has_alpha_test", False)),
         textures=textures,
+        tri_instance=None if d.get("tri_instance") is None else _t(d["tri_instance"], device),
+        instance_scales=(None if d.get("instance_scales") is None
+                         else _t(d["instance_scales"], device)),
+    )
+
+
+def orbit_pool_from_numpy(d: dict, device=None) -> OrbitPool:
+    """d: {OrbitPool field: array}, the leaves of the JAX package's pool."""
+    return OrbitPool(**_fields(OrbitPool, d, resolve(device)))
+
+
+def instanced_scene_from_numpy(d: dict, device=None) -> InstancedScene:
+    """d: {"scene": the dict of ``scene_from_numpy``, "instance_id": (T,)
+    int32 (in the context's triangle order, padded, as the JAX package's
+    ``assign_instance_ids`` leaves it), "n_instances": int, optional
+    "instance_scales": (I, 10)}."""
+    device = resolve(device)
+    scales = d.get("instance_scales")
+    return InstancedScene(
+        scene=scene_from_numpy(d["scene"], device),
+        instance_id=_t(d["instance_id"], device),
+        n_instances=int(d["n_instances"]),
+        instance_scales=None if scales is None else _t(scales, device),
     )
 
 

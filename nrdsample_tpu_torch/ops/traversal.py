@@ -7,7 +7,8 @@ the opaque and the transparent range of one merged scene. Each query picks
 its path by the device of the rays: a CUDA tensor launches a kernel (the
 dense hit kernel, or a packet kernel: the streaming one for slabs larger than
 ``packet.PACKET_VMEM_LIMIT``) or raises, a CPU tensor takes the kernel's
-plain version. Hit results carry no gradient.
+plain version. Hit results carry no gradient. ``scene/instances.refit_context``
+gives the context of an instanced scene's moved geometry.
 """
 
 from __future__ import annotations
@@ -55,15 +56,13 @@ class SceneContexts:
 
 
 def check_scene_supported(scene, mode: str | None) -> None:
-    """Raise NotImplementedError for scenes the port does not trace yet."""
+    """Raise NotImplementedError for a dense context over more triangles
+    than the dense hit kernel takes."""
     n = scene.tris.count
     if mode == "dense" and n > DENSE_CUTOFF:
         raise NotImplementedError(
             f"{n} triangles > DENSE_CUTOFF={DENSE_CUTOFF}: the dense hit kernel takes at most "
             f"{DENSE_CUTOFF}; use cluster mode")
-    if scene.tri_instance is not None or scene.instance_scales is not None:
-        raise NotImplementedError("instance material scales are not ported yet (animated "
-                                  "instances, off the bench path)")
 
 
 def _tris_context(tris, mode: str | None, device):
@@ -81,6 +80,20 @@ def _tris_context(tris, mode: str | None, device):
     return TraceContext(tris_p, "cluster", clusters=cs.to(device), order=order), tris_p
 
 
+def _permute_instances(scene, new_to_old: np.ndarray):
+    """scene.tri_instance in the new triangle numbering (new_to_old[new] =
+    old, -1 for a padded triangle, which gets instance 0); None stays None."""
+    if scene.tri_instance is None:
+        return None
+    ids = scene.tri_instance.cpu().numpy()
+    return torch.from_numpy(np.where(new_to_old >= 0, ids[np.clip(new_to_old, 0, None)],
+                                     0).astype(np.int32))
+
+
+def _padded_order(order: np.ndarray, count: int) -> np.ndarray:
+    return np.concatenate([order, np.full(count - len(order), -1, np.int64)])
+
+
 def _remap_emissive(scene, old_to_new: np.ndarray) -> torch.Tensor:
     em = scene.emissive_tris.cpu().numpy()
     return torch.from_numpy(
@@ -91,8 +104,9 @@ def build_context(scene, mode: str | None = None, device=None):
     """Returns (TraceContext, scene') with scene' on ``device`` (the CUDA card
     when None). ``mode`` None picks "dense" up to DENSE_CUTOFF triangles and
     "cluster" above. In cluster mode scene' has its triangles reordered and
-    padded (hit indices decode against it) and its emissive list remapped
-    through the permutation; always use scene' with this context. Every
+    padded (hit indices decode against it), its emissive list remapped
+    through the permutation and its ``tri_instance`` (if any) permuted with
+    the triangles; always use scene' with this context. Every
     triangle is in the one context, glass included: ``build_scene_contexts``
     splits off the transparent ones."""
     from nrdsample_tpu_torch.render import emissive_is
@@ -105,7 +119,9 @@ def build_context(scene, mode: str | None = None, device=None):
         return ctx, scene.to(device)
     inv = np.empty(len(ctx.order), np.int32)
     inv[ctx.order] = np.arange(len(ctx.order), dtype=np.int32)
-    scene = dataclasses.replace(scene, tris=tris, emissive_tris=_remap_emissive(scene, inv))
+    scene = dataclasses.replace(scene, tris=tris, emissive_tris=_remap_emissive(scene, inv),
+                                tri_instance=_permute_instances(
+                                    scene, _padded_order(ctx.order, tris.count)))
     return ctx, scene.to(device)
 
 
@@ -148,7 +164,10 @@ def build_scene_contexts(scene, mode: str | None = None, device=None):
     old_to_new[ids_o] = np.arange(len(ids_o))
     old_to_new[ids_t] = offset + np.arange(len(ids_t))
     ctx_o.emissive = emissive_is.build_emissive_clusters(scene, device)
-    scene2 = dataclasses.replace(scene, tris=merged, emissive_tris=_remap_emissive(scene, old_to_new))
+    new_to_old = np.concatenate([_padded_order(ids_o, tris_o.count),
+                                 _padded_order(ids_t, tris_t.count)])
+    scene2 = dataclasses.replace(scene, tris=merged, emissive_tris=_remap_emissive(scene, old_to_new),
+                                 tri_instance=_permute_instances(scene, new_to_old))
     return SceneContexts(ctx_o, ctx_t), scene2.to(device)
 
 

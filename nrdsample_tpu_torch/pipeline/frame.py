@@ -127,11 +127,12 @@ def _shadow_translucency_march(tctx: traversal.TraceContext, scene: Scene, cfg: 
 
 
 def trace_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
-                history: History, pixel_idx=None):
+                history: History, pixel_idx=None, dynamics=None):
     """Phase 1 — the SHARC update pass, the opaque trace, the stress tests
     and sanitization, and with glass the shadow translucency march and the
     glass delta chains. ``ctx`` is a
-    TraceContext or a SceneContexts. Returns (gb, aux): per-pixel planes
+    TraceContext or a SceneContexts; ``dynamics`` is the opaque trace's
+    (InstancedScene, m_curr, m_prev) of an animated frame. Returns (gb, aux): per-pixel planes
     (with glass: glass_color, glass_mask and the tinted shadow) and the
     pixel-independent outputs {"sharc": the updated cache, "probes": the
     probe planes}."""
@@ -143,7 +144,8 @@ def trace_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Set
                                                              sharc_state)
     gb = trace_opaque.trace_opaque(ctxs.opaque, scene, cam, cfg, settings, frame, pixel_idx,
                                    sharc_state if cfg.use_sharc else None,
-                                   history.l1 if cfg.use_l1_cache else None)
+                                   history.l1 if cfg.use_l1_cache else None,
+                                   dynamics=dynamics)
     shadow_ray = gb.pop("shadow_ray")
 
     stress_on = (cfg.use_drs_stress_test or cfg.use_inf_stress_test or cfg.use_firefly_test
@@ -501,10 +503,11 @@ def image_frame(cfg: RenderConfig, settings: Settings, cam: Camera,
 
 
 def render_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
-                 history: History, reset_history=False, pixel_idx=None):
+                 history: History, reset_history=False, pixel_idx=None, dynamics=None):
     """One frame: trace_frame then image_frame. ``ctx`` is a TraceContext or,
     for a scene with glass, the SceneContexts of ``build_scene_contexts``.
-    Returns (outputs, history).
+    ``dynamics``, an optional (InstancedScene, m_curr, m_prev), gives moving
+    instances their true motion vectors. Returns (outputs, history).
     Each phase is a ``torch.profiler`` range of its own name, which
     ``profile_frame`` reads."""
     # dynamic camFov: 0 keeps the camera's own FoV
@@ -524,6 +527,7 @@ def render_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Se
         ),
     )
     with torch.profiler.record_function("trace_frame"):
-        gb, aux = trace_frame(ctx, scene, cam, cfg, settings, history, pixel_idx=pixel_idx)
+        gb, aux = trace_frame(ctx, scene, cam, cfg, settings, history, pixel_idx=pixel_idx,
+                              dynamics=dynamics)
     with torch.profiler.record_function("image_frame"):
         return image_frame(cfg, settings, cam, history, gb, aux, reset_history)

@@ -1,8 +1,9 @@
 """Hit decoding and material fetch (counterpart of
 ``nrdsample_tpu/render/gbuffer.py``). A textured scene multiplies the
 material constants by its texels, fetched at the ray-cone mip, and bends
-the shading normal by its normal maps; ``build_context`` still rejects
-instance scales (the animate path)."""
+the shading normal by its normal maps; a scene with per-instance material
+scales (``tri_instance`` and ``instance_scales``) scales them by its hit
+triangle's instance."""
 
 from __future__ import annotations
 
@@ -34,7 +35,12 @@ def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.T
     at the hit) picks their mip (0 without it) and adds the normal map's
     slope over it to the curvature; the normal map, gated by
     ``use_normal_map`` (on when None), bends the shading normal in the
-    tangent frame and the tangent follows it."""
+    tangent frame and the tangent follows it.
+
+    With ``scene.tri_instance`` and ``scene.instance_scales`` the hit
+    triangle's instance row scales base colour, metalness, emission and
+    roughness (InstanceData, RaytracingShared.hlsli:456-468), and the normal
+    map is fetched a second time, at the uv times the row's normalUvScale."""
     tri = torch.clamp_min(hit["tri"], 0).long()
     miss = hit["tri"] < 0
     u = hit["u"]
@@ -93,6 +99,14 @@ def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.T
         e_scale = emission_scale
     emission = mg[..., 5:8] * e_scale
 
+    inst_sc = None
+    if scene.tri_instance is not None and scene.instance_scales is not None:
+        inst_sc = scene.instance_scales[scene.tri_instance[tri].long()]
+        base_color = base_color * inst_sc[..., 0:3]
+        metalness = metalness * inst_sc[..., 3]
+        emission = emission * inst_sc[..., 4:7]
+        roughness = roughness * inst_sc[..., 7]
+
     mip = torch.zeros_like(t)
     local_curv = mip
     if textures is not None:
@@ -112,8 +126,10 @@ def decode_hit(scene: Scene, hit: dict, origin: torch.Tensor, direction: torch.T
         metalness = metalness * texel[..., 6]
         emission = emission * texel[..., 7:8]
         # normal mapping: tangent-space XY from the map, Z rebuilt, rotated
-        # into the (T, B, N) frame and kept in the visible hemisphere
-        n_local_xy = texel[..., 8:10]
+        # into the (T, B, N) frame and kept in the visible hemisphere; an
+        # instance's normalUvScale samples the map at the scaled uv
+        n_local_xy = texel[..., 8:10] if inst_sc is None else tex_mod.sample(
+            textures, mat, uv * inst_sc[..., 8:10], mip)[..., 8:10]
         if use_normal_map is not None:
             n_local_xy = n_local_xy * torch.as_tensor(use_normal_map, device=t.device).to(f32)
         n_local_sq = n_local_xy[..., 0] * n_local_xy[..., 0] + n_local_xy[..., 1] * n_local_xy[..., 1]

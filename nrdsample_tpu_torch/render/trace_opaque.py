@@ -462,14 +462,21 @@ def psr_walk(ctx, scene, cfg: RenderConfig, settings: Settings, cam: Camera, pro
 def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
                  cfg: RenderConfig, settings: Settings, frame,
                  pixel_idx: torch.Tensor | None = None,
-                 sharc_state: sharc.SharcState | None = None, l1_hist=None):
+                 sharc_state: sharc.SharcState | None = None, l1_hist=None,
+                 dynamics=None):
     """Primary ray + G-buffer + indirect path loop (TraceOpaque.cs.hlsl main).
     ``pixel_idx`` (flat int32 indices) selects the pixels to trace;
     ``sharc_state`` is the radiance cache the bounces may read, ``l1_hist``
     the L1 cache's previous frame. With cfg.psr_bounce_num > 0 the PSR walk
     replaces mirror pixels' G-buffer by the virtual surface: view-z and
     motion at the virtual point, the normal unfolded through the transposed
-    mirror matrix."""
+    mirror matrix.
+
+    ``dynamics``, an optional (InstancedScene, m_curr, m_prev) of (I, 3, 4)
+    per-instance transforms, gives moving objects their motion: Xprev =
+    M_prev M_curr^-1 X by the hit's instance (``instances.prev_position``,
+    TraceOpaque.cs.hlsl:610-614); without it Xprev = X. A PSR pixel's motion
+    is taken at its virtual point, moved by Xprev - X."""
     dev = scene.tris.p0.device
     if pixel_idx is None:
         pixel_idx = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
@@ -509,8 +516,15 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
         x_gbuf = x0 - v0 * virt_dist[..., None]
         gb_normal = torch.einsum("nji,nj->ni", mirror_mat, props["n"])
     view_z = torch.where(props["miss"], cfgmod.INF, cam_mod.world_to_view_z(cam, x_gbuf))
-    # motion at the (virtual) point of a static scene: Xprev = X
-    mv = cam_mod.get_motion(cam, x_gbuf, x_gbuf, cfg.width, cfg.height)
+    if dynamics is not None:
+        from nrdsample_tpu_torch.scene import instances
+
+        inst, m_curr, m_prev = dynamics
+        x_prev = instances.prev_position(inst, m_curr, m_prev, props["x"], props["tri"])
+    else:
+        x_prev = props["x"]
+    x_prev_virt = x_gbuf + (x_prev - props["x"])
+    mv = cam_mod.get_motion(cam, x_gbuf, x_prev_virt, cfg.width, cfg.height)
 
     # direct lighting at the primary hit: unshadowed sun + emission
     direct = lighting.direct_sun_lighting(
@@ -542,7 +556,7 @@ def trace_opaque(ctx: traversal.TraceContext, scene: Scene, cam: Camera,
     return {
         "view_z": view_z,
         "mv": mv,
-        "mv_world": x_gbuf - x_gbuf,
+        "mv_world": x_prev_virt - x_gbuf,
         "normal": gb_normal,
         "roughness": props["roughness"],
         "metalness": props["metalness"],

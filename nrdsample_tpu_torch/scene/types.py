@@ -75,9 +75,10 @@ class Scene:
 
     ``textures`` is the ``scene/textures.TextureSet`` of the materials (None
     for constant materials), and ``has_alpha_test`` says that a material
-    carries FLAG_ALPHA_TEST. ``tri_instance`` and ``instance_scales`` are
-    None in this port; ``ops.traversal.build_context`` rejects scenes that
-    need them."""
+    carries FLAG_ALPHA_TEST. ``tri_instance`` (T,) int32 and
+    ``instance_scales`` (I, 10) [baseColor.xyz, metalness, emission.xyz,
+    roughness, normalUv.xy] scale the materials per instance where both are
+    set (``scene/instances.transform_scene`` sets them)."""
 
     tris: TriangleSoA
     materials: Materials

@@ -183,3 +183,53 @@ def test_optimize_without_steps_is_not_recovered(capsys):
     # float32 materials against the float64 perturbation
     assert not out["recovered"]
     assert out["final_albedo_error"] == pytest.approx(out["initial_albedo_error"], rel=1e-6)
+
+
+def _parsed_animate(main, module, monkeypatch, argv):
+    seen = []
+    monkeypatch.setattr(module, "cmd_animate", lambda a: seen.append(vars(a)) or 0)
+    assert main(["animate"] + argv) == 0
+    return {k: v for k, v in seen[0].items() if k not in ("fn", "out")}
+
+
+@pytest.mark.parametrize("argv", [[], ["--size", "64", "--frames", "3", "--cubes", "5",
+                                       "--denoiser", "reblur", "--drs-target-ms", "8", "--cpu"]])
+def test_animate_takes_the_jax_flags(monkeypatch, argv):
+    """The JAX CLI's animate flags and defaults (its --out defaults to a
+    path outside the checkout; the port's to animate.png)."""
+    want = _parsed_animate(jcli.main, jcli, monkeypatch, argv)
+    assert _parsed_animate(cli.main, cli, monkeypatch, argv) == want
+
+
+@pytest.mark.parametrize("drs", [False, True], ids=["fixed", "drs"])
+def test_animate_writes_the_last_frame(drs, tmp_path, capsys):
+    """``animate --cpu --frames 2 --cubes 3`` writes the tonemapped last
+    frame of ``pipeline/animate.render`` (the adaptive cap of the timer's
+    start value in both frames: the timer takes its first time after frame
+    1). With a DRS target no frame meets, the second frame renders at the
+    next bucket (48 -> 40) and the PNG is the display image at 48x48."""
+    from nrdsample_tpu_torch.pipeline import adaptive, animate, drs as drs_mod
+
+    size = 48 if drs else 32
+    path = tmp_path / "a.png"
+    argv = ["animate", "--cpu", "--size", str(size), "--frames", "2", "--cubes", "3",
+            "--out", str(path)] + (["--drs-target-ms", "0.001"] if drs else [])
+    assert cli.main(argv) == 0
+    out_text = capsys.readouterr()
+    assert f"wrote {path}" in out_text.out
+    assert ("frame 0: DRS -> 40x40" in out_text.err) == drs
+    anim = animate.build(3, "cpu")
+    cfg = animate.render_config(size)
+    cfgs = [drs_mod.bucket_cfg(cfg, 1.0), drs_mod.bucket_cfg(cfg, 0.875)] if drs else [cfg, cfg]
+    settings = adaptive.update(make_settings("cpu", sun_elevation=55.0), None,
+                               adaptive.FrameTimer().smoothed_ms)
+    hist = frame.History.create(cfgs[0], "cpu")
+    for f in range(2):
+        if f == 1 and drs:
+            hist = drs_mod.resize_history(hist, cfgs[0], cfgs[1])
+        out, hist = animate.render(anim, cfgs[f], settings, hist, *animate.frame_times(f))
+    img = out["display"].numpy() if drs else out["final"].numpy().reshape(size, size, 3)
+    assert img.shape == (size, size, 3) and np.isfinite(img).all()
+    want = tmp_path / "want.png"
+    image.write_png(str(want), image.tonemap_for_display(img, 0.6))
+    assert path.read_bytes() == want.read_bytes()

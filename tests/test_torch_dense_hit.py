@@ -142,6 +142,58 @@ np.savez(sys.argv[1], **out)
 """
 
 
+def _scan_per_ray(origin, direction, table, t_max):
+    """The dense scan as one (rays, chunk) step per chunk of triangles, u
+    and v kept per chunk and non-hits keyed inf by ``torch.where``: the
+    straightforward form of ``intersect.nearest_hits``."""
+    r = origin.shape[0]
+    best_t = torch.as_tensor(t_max, dtype=torch.float32).expand(r).clone()
+    best_u, best_v = torch.zeros(r), torch.zeros(r)
+    best_i = torch.full((r,), -1, dtype=torch.int64)
+    o = [a[:, None] for a in origin.unbind(-1)]
+    d = [a[:, None] for a in direction.unbind(-1)]
+    for a in range(0, table.shape[0], 128):
+        rows = table[a:a + 128]
+        t, u, v, hit = intersect.mt_intersect(*o, *d, *(rows[None, :, k] for k in range(9)))
+        t = torch.where(hit & (t < best_t[:, None]), t, torch.inf)
+        arg = torch.argmin(t, dim=1, keepdim=True)
+        tmin = torch.gather(t, 1, arg)[:, 0]
+        closer = tmin < best_t
+        best_t = torch.where(closer, tmin, best_t)
+        best_u = torch.where(closer, torch.gather(u, 1, arg)[:, 0], best_u)
+        best_v = torch.where(closer, torch.gather(v, 1, arg)[:, 0], best_v)
+        best_i = torch.where(closer, arg[:, 0] + a, best_i)
+    return best_t, best_i, best_u, best_v
+
+
+@pytest.mark.parametrize("n_rays,n_tris", [(1024, 300), (300, 1000), (4096, 36), (5, 3000)])
+def test_scan_layout_gives_the_same_bits(n_rays, n_tris):
+    """nearest_hits (triangles along dim 0, a maximum for the non-hits' key,
+    u and v again at the end) equals the per-ray formulation bit for bit,
+    whatever its chunk size: seeded triangles with exact duplicates (ties),
+    zero edges and parallel edges (det 0), rays with inf / NaN origins and a
+    zero direction, per-ray and scalar t_max."""
+    g = torch.Generator().manual_seed(n_rays + n_tris)
+    o = torch.randn(n_rays, 3, generator=g) * 0.3
+    d = torch.nn.functional.normalize(torch.randn(n_rays, 3, generator=g), dim=-1)
+    table = torch.randn(n_tris, 9, generator=g)
+    table[n_tris // 2] = table[n_tris // 3]
+    table[1, 3:] = 0.0
+    table[2, 6:9] = table[2, 3:6]
+    o[0], d[1], o[min(2, n_rays - 1)] = float("inf"), 0.0, float("nan")
+    for t_max in (torch.rand(n_rays, generator=g) * 5, intersect.T_MAX):
+        want = _scan_per_ray(o, d, table, t_max)
+        for chunk in (1 << 10, intersect.CHUNK_PAIRS):
+            old, intersect.CHUNK_PAIRS = intersect.CHUNK_PAIRS, chunk
+            try:
+                got = intersect.nearest_hits(o, d, table, t_max)
+            finally:
+                intersect.CHUNK_PAIRS = old
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int((want[1] >= 0).sum()) >= min(n_rays, 5) // 2
+
+
 @pytest.fixture(scope="module")
 def unfused_oracle(tmp_path_factory):
     return session_cached(tmp_path_factory, "torch_dense_hit_unfused_oracle",

@@ -240,8 +240,14 @@ def _scene_variant(name):
     if name == "alpha_test":
         return textures.textured_scene(scene, res=64, alpha_materials=(0, 1, 2))
     if name == "instance_scales":
-        return dataclasses.replace(scene, tri_instance=torch.zeros(scene.num_tris, dtype=torch.int32),
-                                   instance_scales=torch.ones(1, 10))
+        # the two boxes (the last 24 triangles) are instance 1, at half
+        # their base colour and roughness
+        ids = torch.zeros(scene.num_tris, dtype=torch.int32)
+        ids[-24:] = 1
+        scales = torch.ones(2, 10)
+        scales[1, 0:3] = 0.5
+        scales[1, 7] = 0.5
+        return dataclasses.replace(scene, tri_instance=ids, instance_scales=scales)
     if name == "transparent":
         flags = scene.materials.flags.clone()
         flags[4] = config.FLAG_TRANSPARENT
@@ -289,7 +295,10 @@ def test_later_scene_branches_raise(name):
     (on the CPU the dense plain probe; the emissive ClusterSet is built for
     the card only), textures and normal maps (an 8x8 frame renders finite
     and differs from the untextured one) and the alpha test (rays pass the
-    cut-outs of the alpha-tested walls)."""
+    cut-outs of the alpha-tested walls) and per-instance material scales
+    (the boxes' instance row halves their colour: the frame differs from
+    the plain one, and with unit rows equals it; in cluster mode the
+    instance ids follow the triangles' order)."""
     if name == "over_1024_tris":
         ctx, scene = traversal.build_context(_scene_variant(name), device="cpu")
         assert ctx.mode == "cluster" and ctx.clusters.count == 9
@@ -330,8 +339,24 @@ def test_later_scene_branches_raise(name):
             hit = traversal.closest_hit_alpha(ctx, scene, o, d)
             assert int((hit["tri"] != traversal.closest_hit(ctx, o, d)["tri"]).sum()) > 0
         return
-    with pytest.raises(NotImplementedError):
-        traversal.build_context(_scene_variant(name), device="cpu")
+    assert name == "instance_scales"
+    variant = _scene_variant(name)
+    cfg = RenderConfig(width=8, height=8)
+    cam = look_at([0, -3, 1], [0, 0, 1], device="cpu")
+
+    def render(sc):
+        ctx, sc = traversal.build_context(sc, device="cpu")
+        return frame.render_frame(ctx, sc, cam, cfg, config.Settings(),
+                                  frame.History.create(cfg, "cpu"))[0]["color"]
+
+    out, plain = render(variant), render(procedural.cornell_box())
+    assert bool(torch.isfinite(out).all()) and not torch.equal(out, plain)
+    unit = dataclasses.replace(variant, instance_scales=torch.ones(2, 10))
+    assert torch.equal(render(unit), plain)
+    ctx, scene = traversal.build_context(variant, mode="cluster", device="cpu")
+    old_ids = variant.tri_instance.numpy()
+    assert np.array_equal(scene.tri_instance.numpy()[:len(ctx.order)], old_ids[ctx.order])
+    assert not scene.tri_instance[len(ctx.order):].any()
 
 
 def test_cluster_mode_raises():

@@ -21,10 +21,12 @@ _CONTEXTS: dict = {}
 
 
 def _replay(name, index):
-    """records.replay_record on the CPU, each scene built once per process."""
+    """records.replay_record on the CPU, each scene built once per process,
+    without autograd's bookkeeping (the frames are the same bits)."""
     if name not in _CONTEXTS:
         _CONTEXTS[name] = records.build_replay_context(name, "cpu")
-    return records.replay_record(*_CONTEXTS[name], name, index, "cpu")
+    with torch.inference_mode():
+        return records.replay_record(*_CONTEXTS[name], name, index, "cpu")
 
 
 def _record_ids():

@@ -114,7 +114,7 @@ def test_convert_camera_settings_history_round_trip():
 
 def test_convert_rejects_textures():
     """A JAX TextureSet's levels carry across bit for bit (textures are
-    ported); the instance leaves of the animate path are still refused."""
+    ported); so do the instance leaves of the animate path (ported since)."""
     from nrdsample_tpu.scene import textures as jtextures
 
     leaves = _np_leaves(jproc.cornell_box())
@@ -127,10 +127,12 @@ def test_convert_rejects_textures():
     for a, b in zip(got.levels, ts.levels):
         assert a.dtype == torch.float32
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    for key in ("tri_instance", "instance_scales"):
-        bad = dict(_np_leaves(jproc.cornell_box()), **{key: np.zeros(4, np.int32)})
-        with pytest.raises(NotImplementedError):
-            convert.scene_from_numpy(bad, device="cpu")
+    inst = {"tri_instance": np.arange(36, dtype=np.int32) % 3,
+            "instance_scales": np.random.RandomState(1).rand(3, 10).astype(np.float32)}
+    got = convert.scene_from_numpy(dict(_np_leaves(jproc.cornell_box()), **inst), device="cpu")
+    for key, want in inst.items():
+        assert getattr(got, key).dtype == torch.from_numpy(want).dtype
+        np.testing.assert_array_equal(getattr(got, key).numpy(), want)
 
 
 def test_record_load_matches_jax():

@@ -16,7 +16,14 @@ the oracle of the port's exterior and glass tests, order the triangles with
 its C++ BVH builder and not with its numpy fallback.
 
 ``share_cores_between_workers``, called by every port test module when it is
-imported, gives torch's intra-op pool one xdist worker's share of the cores.
+imported, gives torch's intra-op pool one xdist worker's share of the cores,
+and points JAX's persistent compilation cache at a directory of the session
+that all its workers share: a program one worker compiled (the JAX oracles
+of the port's tests, the same module fixture on two workers under ``--dist
+load``) is loaded by the others instead of compiled again (programs that
+compile in a second or more: JAX's default). Each session starts with an
+empty cache. An entry read while another worker still writes it does not
+decompress, and JAX then compiles the program itself (with a warning).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import dataclasses
 import fcntl
 import os
 import pickle
+import tempfile
 import time
 import traceback
 
@@ -166,7 +174,9 @@ def session_cached(tmp_path_factory, name: str, compute, others: dict | None = N
 
 def share_cores_between_workers():
     """Under pytest-xdist, cap torch's intra-op threads at this worker's
-    share of the cores (at least one); without xdist, change nothing.
+    share of the cores (at least one) and share JAX's compiled programs
+    with the session's other workers (``_share_jax_compiles``); without
+    xdist, change nothing.
 
     torch's default is a thread per core in every process. With six workers
     on eight cores that oversubscribes the cores: the threads spin after
@@ -175,6 +185,22 @@ def share_cores_between_workers():
     workers = os.environ.get("PYTEST_XDIST_WORKER_COUNT")
     if workers is not None:
         torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // int(workers)))
+        _share_jax_compiles()
+
+
+def _share_jax_compiles():
+    """Under xdist, a JAX compilation cache in the temporary directory,
+    named by the session's run id (the same on every worker of the
+    session). Its size limit stays unset: a limit turns on a file lock and
+    a scan of the directory at every write, which made the port's tests
+    take three times as long."""
+    import jax
+
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run is None or jax.config.jax_compilation_cache_dir:
+        return
+    path = os.path.join(tempfile.gettempdir(), f"nrdsample-jax-cache-{run}")
+    jax.config.update("jax_compilation_cache_dir", path)
 
 
 def jax_native_order_ready(tmp_path_factory, tries: int = 20, wait_s: float = 0.5):
