@@ -46,7 +46,8 @@ moved and refit on the card every frame, timed, each kernel call of a
 frame against its plain version, the resident packet kernel on the refit
 slab among them; a DRS run over a fixed bucket schedule; ``cli animate``;
 card against CPU at 96x96; and where shaderballs512's REBLUR trace at 64x64
-parts between the card and the CPU, call by call), and
+parts between the card and the CPU, call by call, with its material
+gradients card against CPU within GRAD_TOL), and
 prints one JSON line of kernels plus a final ``{"ok": true, "device": ...}``
 line. Any failed phase exits non-zero
 with no result line. It also runs the backward of the three denoiser
@@ -1812,8 +1813,7 @@ def check_animate(dev, card: str, launches: dict, reset_counts, counters: dict) 
     return summary
 
 
-PIXEL_RES = 64    # shaderballs512's REBLUR config whose roughness gradient left the gate (PR 10)
-HIGHLIGHT_PIXEL = (29, 13)   # (y, x) of the sun highlight that carries its card-vs-CPU gap
+PIXEL_RES = 64    # shaderballs512's REBLUR config, traced and differentiated card against CPU
 
 
 def check_reblur_pixel(dev, card: str) -> dict:
@@ -1909,95 +1909,34 @@ def check_reblur_pixel(dev, card: str) -> dict:
 
 
 def check_reblur_gradient(dev, card: str) -> dict:
-    """shaderballs512's REBLUR config at 64x64: one step's material
-    gradients card against CPU (the case PR 10 left out of phase 8's (D)),
-    each field's largest gap over its largest |CPU entry|; the forward
-    planes card against CPU; and, where a field is past GRAD_TOL, the
-    pixels whose loss carries the gap (the loss cut to 16 blocks of the
-    image, then 16 sub-blocks of the worst, then its 16 pixels; skipped
-    where HIGHLIGHT_PIXEL alone carries nine tenths of the gap)."""
+    """shaderballs512's REBLUR config at PIXEL_RES x PIXEL_RES: one step's
+    material gradients card against CPU, every field within GRAD_TOL of its
+    largest |CPU entry|, as phase 8's (D); fails otherwise. Returns each
+    field's largest gap over its largest |CPU entry|."""
     from nrdsample_tpu_torch.pipeline import bench_configs, frame, train
 
-    setups, grads = {}, {}
+    grads = {}
     for where in ("cpu", dev):
-        setups[where] = bench_configs.setup("shaderballs512", where, width=PIXEL_RES,
-                                            height=PIXEL_RES)
-
-    def vag(where, weight=None):
-        ctx, scene, cam, cfg, settings = setups[where]
+        ctx, scene, cam, cfg, settings = bench_configs.setup(
+            "shaderballs512", where, width=PIXEL_RES, height=PIXEL_RES)
         diff, rest = train.split_materials(scene.materials)
-        w = None if weight is None else weight.to(where)
-
-        def loss_fn(md, mr, *args):
-            color, _ = train.render_color(ctx, cfg, train.merge_materials(md, mr), scene, cam,
-                                          settings, frame.History.create(cfg, where))
-            sq = color * color
-            return torch.sum(sq if w is None else sq * w[:, None])
-
-        return {k: g.cpu() for k, g in train.value_and_grad(loss_fn, diff, rest)[1].items()}
-
-    for where in ("cpu", dev):
-        grads[where] = vag(where)
-    scale = {k: float(v.abs().max()) for k, v in grads["cpu"].items()}
-
-    def gaps(g_cpu, g_dev):
-        return {k: float((g_dev[k] - g_cpu[k]).abs().max()) / max(scale[k], 1e-30) for k in g_cpu}
-
-    full = gaps(grads["cpu"], grads[dev])
-    outs = {}
-    for where in ("cpu", dev):
-        ctx, scene, cam, cfg, settings = setups[where]
-        with torch.no_grad():
-            outs[where] = frame.render_frame(ctx, scene, cam, cfg, settings,
-                                             frame.History.create(cfg, where))[0]
-    planes = {}
-    for k in RECORD_PLANES:
-        ref, got = outs["cpu"][k].double().cpu(), outs[dev][k].double().cpu()
-        ref, got = ref.reshape(ref.shape[0], -1), got.reshape(got.shape[0], -1)
-        rel = ((ref - got).abs() / (1.0 + ref.abs())).amax(dim=-1)
-        planes[k] = (float(rel.max()), int(rel.argmax()))
-    print("[reblur gradient] shaderballs512 REBLUR at 64x64, card against CPU, largest gap over "
-          "the field's largest |CPU entry|: " + ", ".join(f"{k} {v:.3g}" for k, v in full.items())
-          + "; forward planes, largest |card - CPU| / (1 + |CPU|) (pixel): "
-          + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in planes.items()) + f" ({card})")
-    found = None
-    if max(full.values()) > GRAD_TOL:
-        n = PIXEL_RES * PIXEL_RES
-        ys, xs = torch.div(torch.arange(n), PIXEL_RES, rounding_mode="floor"), torch.arange(n) % PIXEL_RES
-        y0, x0 = HIGHLIGHT_PIXEL
-        mask = ((ys == y0) & (xs == x0)).float()
-        alone = max(gaps(vag("cpu", mask), vag(dev, mask)).values())
-        print(f"[reblur gradient] the loss of pixel {HIGHLIGHT_PIXEL} alone: gap {alone:.3g} of "
-              f"the whole image's {max(full.values()):.3g}")
-        size = 1 if alone >= 0.9 * max(full.values()) else PIXEL_RES
-        if size > 1:
-            y0, x0 = 0, 0
-        while size > 1:
-            size //= 4
-            trials = []
-            for by in range(4):
-                for bx in range(4):
-                    ya, xa = y0 + by * size, x0 + bx * size
-                    mask = ((ys >= ya) & (ys < ya + size) & (xs >= xa) & (xs < xa + size)).float()
-                    gap = max(gaps(vag("cpu", mask), vag(dev, mask)).values())
-                    trials.append((gap, ya, xa))
-            trials.sort(reverse=True)
-            print(f"[reblur gradient] {size}x{size} blocks, largest gaps (gap, y, x): "
-                  + ", ".join(f"({g:.3g}, {y}, {x})" for g, y, x in trials[:4]))
-            _, y0, x0 = trials[0]
-        found = y0 * PIXEL_RES + x0
-
-        def at(where, k):
-            v = outs[where][k] if k in outs[where] else outs[where]["gbuffer"][k]
-            return v.reshape(n, -1)[found].cpu().tolist()
-
-        keys = [k for k in ("color", "diff_radiance", "spec_radiance", "direct_lighting",
-                            "emission", "diff_factor", "spec_factor", "shadow", "roughness",
-                            "metalness", "normal", "view_z", "psr_throughput", "l_psr")
-                if k in outs["cpu"] or k in outs["cpu"]["gbuffer"]]
-        print(f"[reblur gradient] the pixel (y {y0}, x {x0}), index {found}, CPU then card: "
-              + "; ".join(f"{k} {at('cpu', k)} {at(dev, k)}" for k in keys))
-    return dict(full=full, planes=planes, pixel=found)
+        grads[where] = {k: g.cpu() for k, g in train.value_and_grad(
+            train.make_loss_fn(ctx, cfg), diff, rest, scene, cam, settings,
+            frame.History.create(cfg, where),
+            torch.zeros((cfg.n_pixels, 3), device=where))[1].items()}
+    rel = {}
+    for k, want in grads["cpu"].items():
+        got = grads[dev][k]
+        scale = float(want.abs().max())
+        gap = float((got - want).abs().max())
+        rel[k] = gap / scale if scale > 0.0 else gap
+        if not bool(torch.isfinite(got).all()) or gap > GRAD_TOL * scale:
+            fail(f"shaderballs512 REBLUR at {PIXEL_RES}x{PIXEL_RES}: the card's {k} gradient is "
+                 f"{gap:.4g} off the CPU's (largest |CPU entry| {scale:.4g})")
+    print(f"[reblur gradient] shaderballs512 REBLUR at {PIXEL_RES}x{PIXEL_RES}, card against CPU "
+          "gradients, largest gap over the field's largest |CPU entry| (gate "
+          f"{GRAD_TOL:g}): " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()) + f" ({card})")
+    return rel
 
 
 def main() -> int:

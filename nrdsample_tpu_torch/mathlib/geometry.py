@@ -118,8 +118,13 @@ def length(v, eps: float = 1e-15):
 
 
 def normalize(v, eps: float = 1e-15):
-    n2 = dot3(v, v)[..., None]
-    return v * torch.rsqrt(clip_min(n2, eps * eps))
+    """v x 1/sqrt(|v|^2), the sqrt and the reciprocal each rounded once, so
+    that the card and the CPU give the same bits: the CPU's ``torch.rsqrt``
+    is that, the card's is an approximation (within 2 ULPs), so the card
+    takes ``torch.sqrt`` and ``torch.reciprocal``, both IEEE there."""
+    n2 = clip_min(dot3(v, v)[..., None], eps * eps)
+    inv = torch.reciprocal(torch.sqrt(n2)) if n2.is_cuda else torch.rsqrt(n2)
+    return v * inv
 
 
 def cross(a, b):

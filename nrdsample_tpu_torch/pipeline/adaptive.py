@@ -25,6 +25,8 @@ MAX_HISTORY_FRAME_NUM = 60
 # NRDSample.cpp:2164: the frame rate the cap uses is clamped, so that very
 # fast frames do not grow the history without bound
 _MAX_FPS = 121.0
+# the weight of a new frame time in FrameTimer's EMA
+_TIMER_ALPHA = 0.03
 
 
 @dataclasses.dataclass
@@ -33,19 +35,16 @@ class FrameTimer:
     the reference smooths over ~32 frames)."""
 
     smoothed_ms: float = 16.7
-    alpha: float = 0.03
 
     def update(self, frame_ms: float) -> float:
-        self.smoothed_ms += (frame_ms - self.smoothed_ms) * self.alpha
+        self.smoothed_ms += (frame_ms - self.smoothed_ms) * _TIMER_ALPHA
         return self.smoothed_ms
 
 
-def max_accumulated_frames(smoothed_frame_ms: float, boost_with_sharc: bool = False) -> int:
-    """ACCUMULATION_TIME x fps frames, the fps capped (NRDSample.cpp:2161-2169);
-    ``boost_with_sharc`` shortens the window to 2/3 (:2166)."""
+def max_accumulated_frames(smoothed_frame_ms: float) -> int:
+    """ACCUMULATION_TIME x fps frames, the fps capped (NRDSample.cpp:2161-2169)."""
     fps = min(1000.0 / max(smoothed_frame_ms, 1e-3), _MAX_FPS)
-    acc_time = ACCUMULATION_TIME * (0.667 if boost_with_sharc else 1.0)
-    frames = max(int(round(acc_time * fps)), 1)
+    frames = max(int(round(ACCUMULATION_TIME * fps)), 1)
     return min(frames, MAX_HISTORY_FRAME_NUM)
 
 
@@ -60,13 +59,13 @@ def emission_reset_factor(emission_now: float, emission_prev: float,
     return 1.0 / (1.0 + 0.2 * d)
 
 
-def update(settings: Settings, settings_prev: Settings | None, smoothed_frame_ms: float,
-           boost_with_sharc: bool = False) -> Settings:
+def update(settings: Settings, settings_prev: Settings | None,
+           smoothed_frame_ms: float) -> Settings:
     """One PrepareFrame step: ``settings`` with max_accumulated_frame_num =
     the adaptive cap x the emission reset factor (NRDSample.cpp:2139-2189).
     Hard resets (a denoiser change, frame 0) stay the caller's, through the
     frame's reset_history."""
-    cap = max_accumulated_frames(smoothed_frame_ms, boost_with_sharc)
+    cap = max_accumulated_frames(smoothed_frame_ms)
     factor = 1.0
     if settings_prev is not None:
         factor = emission_reset_factor(float(settings.emission_intensity),

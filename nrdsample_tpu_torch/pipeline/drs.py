@@ -21,6 +21,8 @@ import numpy as np
 import torch
 
 BUCKETS = (1.0, 0.875, 0.75, 0.625, 0.5)
+# the weight of a new frame time in the controller's EMA
+EMA_ALPHA = 0.25
 
 
 def render_size(width: int, height: int, scale: float) -> tuple[int, int]:
@@ -49,33 +51,30 @@ class DrsController:
     still fit (cost taken as proportional to the pixel count), and three
     frames' rest after each switch."""
 
-    def __init__(self, target_ms: float, buckets=BUCKETS, alpha: float = 0.25,
-                 start_index: int = 0):
+    def __init__(self, target_ms: float):
         self.target_ms = float(target_ms)
-        self.buckets = tuple(buckets)
-        self.alpha = float(alpha)
-        self.index = int(start_index)
+        self.index = 0
         self.ema_ms = None
         self._cooldown = 0
 
     @property
     def scale(self) -> float:
-        return self.buckets[self.index]
+        return BUCKETS[self.index]
 
     def update(self, frame_ms: float) -> float:
         """Feed one frame's wall time; returns the scale of the next frame."""
         self.ema_ms = (frame_ms if self.ema_ms is None
-                       else self.ema_ms + self.alpha * (frame_ms - self.ema_ms))
+                       else self.ema_ms + EMA_ALPHA * (frame_ms - self.ema_ms))
         if self._cooldown > 0:
             # a switch just happened: let the EMA settle at the new cost
             self._cooldown -= 1
             return self.scale
-        if self.ema_ms > self.target_ms and self.index + 1 < len(self.buckets):
+        if self.ema_ms > self.target_ms and self.index + 1 < len(BUCKETS):
             self.index += 1
             self._cooldown = 3
             self.ema_ms = None
         elif self.index > 0:
-            up = self.buckets[self.index - 1]
+            up = BUCKETS[self.index - 1]
             predicted = self.ema_ms * (up / self.scale) ** 2
             if predicted < 0.9 * self.target_ms:
                 self.index -= 1

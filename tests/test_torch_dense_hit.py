@@ -142,10 +142,36 @@ np.savez(sys.argv[1], **out)
 """
 
 
+def _mt_intersect_guarded(ox, oy, oz, dx, dy, dz, p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y,
+                          e2z):
+    """Möller-Trumbore with a zero 1/det where |det| < EPS and no division
+    by a zero det, and the bounds as u >= -1e-6 and v >= -1e-6: the plain
+    reference as it stood before ``intersect.mt_intersect`` dropped the
+    guards."""
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    small = torch.abs(det) < intersect.EPS
+    inv_det = torch.where(small, 0.0, torch.reciprocal(torch.where(det == 0, 1.0, det)))
+    tvx = ox - p0x
+    tvy = oy - p0y
+    tvz = oz - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    hit = ~small & (u >= -1e-6) & (v >= -1e-6) & (u + v <= 1.0 + 1e-6) & (t > 1e-5)
+    return t, u, v, hit
+
+
 def _scan_per_ray(origin, direction, table, t_max):
     """The dense scan as one (rays, chunk) step per chunk of triangles, u
-    and v kept per chunk and non-hits keyed inf by ``torch.where``: the
-    straightforward form of ``intersect.nearest_hits``."""
+    and v kept per chunk and non-hits keyed inf by ``torch.where``, on the
+    guarded Möller-Trumbore: the straightforward form of
+    ``intersect.nearest_hits``."""
     r = origin.shape[0]
     best_t = torch.as_tensor(t_max, dtype=torch.float32).expand(r).clone()
     best_u, best_v = torch.zeros(r), torch.zeros(r)
@@ -154,7 +180,7 @@ def _scan_per_ray(origin, direction, table, t_max):
     d = [a[:, None] for a in direction.unbind(-1)]
     for a in range(0, table.shape[0], 128):
         rows = table[a:a + 128]
-        t, u, v, hit = intersect.mt_intersect(*o, *d, *(rows[None, :, k] for k in range(9)))
+        t, u, v, hit = _mt_intersect_guarded(*o, *d, *(rows[None, :, k] for k in range(9)))
         t = torch.where(hit & (t < best_t[:, None]), t, torch.inf)
         arg = torch.argmin(t, dim=1, keepdim=True)
         tmin = torch.gather(t, 1, arg)[:, 0]

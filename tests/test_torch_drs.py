@@ -47,14 +47,16 @@ def test_controller_steps_down_when_over_budget():
 
 
 def test_controller_steps_back_up_with_headroom():
-    c = drs.DrsController(target_ms=10.0, start_index=3)
+    c = drs.DrsController(target_ms=10.0)
+    c.index = 3
     for _ in range(12):
         c.update(2.0)
     assert c.scale > drs.BUCKETS[3]
 
 
 def test_controller_holds_at_target():
-    c = drs.DrsController(target_ms=10.0, start_index=1)
+    c = drs.DrsController(target_ms=10.0)
+    c.index = 1
     for _ in range(20):
         c.update(9.5)
     assert c.index == 1
@@ -71,8 +73,8 @@ def test_controller_decisions_equal_jax(target, start):
     rs = np.random.RandomState(int(target * 10) + start)
     times = np.concatenate([rs.uniform(2.0, 40.0, 40), np.full(10, 60.0), np.full(15, 1.0),
                             target * rs.uniform(0.8, 1.2, 20)])
-    got, want = drs.DrsController(target, start_index=start), jdrs.DrsController(
-        target, start_index=start)
+    got, want = drs.DrsController(target), jdrs.DrsController(target, start_index=start)
+    got.index = start
     for ms in times:
         assert got.update(float(ms)) == want.update(float(ms))
         assert (got.index, got.ema_ms, got._cooldown) == (want.index, want.ema_ms, want._cooldown)
@@ -217,9 +219,7 @@ def test_two_bucket_frames_with_history_resize():
 
 def test_adaptive_caps_equal_jax():
     for ms in (0.5, 4.0, 8.26, 16.7, 33.3, 100.0, 1000.0):
-        for boost in (False, True):
-            assert adaptive.max_accumulated_frames(ms, boost) == jadaptive.max_accumulated_frames(
-                ms, boost)
+        assert adaptive.max_accumulated_frames(ms) == jadaptive.max_accumulated_frames(ms)
         for now, prev in ((1.0, 1.0), (2.0, 1.0), (0.0, 5.0)):
             assert adaptive.emission_reset_factor(now, prev, ms) == pytest.approx(
                 jadaptive.emission_reset_factor(now, prev, ms), rel=1e-12)
@@ -229,8 +229,8 @@ def test_adaptive_caps_equal_jax():
         emission = 1.0 + (i == 3) * 4.0
         s = config.make_settings("cpu", emission_intensity=emission)
         js = jconfig.Settings(emission_intensity=jnp.float32(emission))
-        got = adaptive.update(s, prev, timer.update(ms), boost_with_sharc=i % 2 == 1)
-        want = jadaptive.update(js, jprev, jtimer.update(ms), boost_with_sharc=i % 2 == 1)
+        got = adaptive.update(s, prev, timer.update(ms))
+        want = jadaptive.update(js, jprev, jtimer.update(ms))
         assert got.max_accumulated_frame_num.dtype == torch.int32
         assert got.max_accumulated_frame_num.device == s.max_accumulated_frame_num.device
         assert int(got.max_accumulated_frame_num) == int(want.max_accumulated_frame_num)

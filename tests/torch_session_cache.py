@@ -22,8 +22,9 @@ that all its workers share: a program one worker compiled (the JAX oracles
 of the port's tests, the same module fixture on two workers under ``--dist
 load``) is loaded by the others instead of compiled again (programs that
 compile in a second or more: JAX's default). Each session starts with an
-empty cache. An entry read while another worker still writes it does not
-decompress, and JAX then compiles the program itself (with a warning).
+empty cache. An entry is written to a temporary file of its own and renamed
+into place, so a worker sees no entry or a whole one, never one that another
+worker is still writing.
 """
 
 from __future__ import annotations
@@ -191,16 +192,38 @@ def share_cores_between_workers():
 def _share_jax_compiles():
     """Under xdist, a JAX compilation cache in the temporary directory,
     named by the session's run id (the same on every worker of the
-    session). Its size limit stays unset: a limit turns on a file lock and
-    a scan of the directory at every write, which made the port's tests
-    take three times as long."""
+    session), whose entries are written atomically (``_atomic_file_cache``).
+    Its size limit stays unset: a limit turns on a file lock and a scan of
+    the directory at every write, which made the port's tests take three
+    times as long."""
     import jax
+    from jax._src import compilation_cache
 
     run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
     if run is None or jax.config.jax_compilation_cache_dir:
         return
     path = os.path.join(tempfile.gettempdir(), f"nrdsample-jax-cache-{run}")
+    compilation_cache.get_file_cache = lambda p: (_atomic_file_cache(p), p)
     jax.config.update("jax_compilation_cache_dir", path)
+
+
+def _atomic_file_cache(path: str):
+    """JAX's file cache with no size limit, whose ``put`` writes an entry
+    to a file named by this process and renames it into place: JAX's own
+    writes the entry's file in place, and a reader on another worker can
+    find it half written."""
+    from jax._src import lru_cache
+
+    class AtomicFileCache(lru_cache.LRUCache):
+        def put(self, key: str, val: bytes) -> None:
+            final = self.path / f"{key}{lru_cache._CACHE_SUFFIX}"
+            if final.exists():
+                return
+            part = final.with_name(f".{final.name}.{os.getpid()}.part")
+            part.write_bytes(val)
+            os.replace(part, final)
+
+    return AtomicFileCache(path, max_size=-1)
 
 
 def jax_native_order_ready(tmp_path_factory, tries: int = 20, wait_s: float = 0.5):
