@@ -47,7 +47,15 @@ frame against its plain version, the resident packet kernel on the refit
 slab among them; a DRS run over a fixed bucket schedule; ``cli animate``;
 card against CPU at 96x96; and where shaderballs512's REBLUR trace at 64x64
 parts between the card and the CPU, call by call, with its material
-gradients card against CPU within GRAD_TOL), and
+gradients card against CPU within GRAD_TOL), then sharding on
+``torch.distributed`` (phase 11: which collectives gloo takes on CUDA
+tensors with two ranks on the card, and NCCL's refusal of two ranks on one
+card; kitchen1080 at
+1920x1080 sharded over two spawned ranks on the card, two frames, rank 0's
+outputs and History against this process's frames, each rank's launches,
+wall ms and peak memory; one sharded training step's gradients against this
+process's; ``dryrun_multichip(4)``; the bvh8 traversal mode against the
+dense hit kernel on the Cornell box's camera rays), and
 prints one JSON line of kernels plus a final ``{"ok": true, "device": ...}``
 line. Any failed phase exits non-zero
 with no result line. It also runs the backward of the three denoiser
@@ -1939,6 +1947,191 @@ def check_reblur_gradient(dev, card: str) -> dict:
     return rel
 
 
+SHARD_RANKS = 2                  # kitchen1080's sharded frame and step: ranks on the one card
+SHARD_FRAMES = 2
+DRYRUN_RANKS = 4
+SHARD_TIMEOUT_S = 300.0          # each spawn of ranks
+SHARD_TOL = 1e-4                 # sharded against single process (test_sharded_parity.py's)
+
+
+def check_transport(card: str) -> dict:
+    """Phase 11 (A): which collectives gloo takes on CUDA tensors with
+    SHARD_RANKS ranks on this card, and whether NCCL takes SHARD_RANKS ranks
+    on one card (``distributed.probe``). The port hands CUDA tensors to the
+    backend as they are, staging none through host memory: the phase fails
+    where gloo refuses one of ``distributed.COLLECTIVES``."""
+    from nrdsample_tpu_torch.parallel import distributed
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    found = distributed.probe(SHARD_RANKS, timeout_s=SHARD_TIMEOUT_S)
+    for op in distributed.COLLECTIVES:
+        if found["gloo"][op] != "ok":
+            fail(f"gloo's {op} on CUDA tensors: {found['gloo'][op]}; the port hands it "
+                 "CUDA tensors as they are")
+    backend = distributed.backend_for(SHARD_RANKS, "cuda")
+    print(f"[sharding] (A) {SHARD_RANKS} ranks on one card: gloo on CUDA tensors "
+          f"{found['gloo']}; NCCL: {found['nccl']}; backend {backend}, staged through the host: "
+          f"none ({card}; {time.perf_counter() - t0:.1f} s)")
+    return {"probe": found, "backend": backend, "staged": []}
+
+
+def check_sharding(dev, card: str) -> dict:
+    """Phase 11 (B)-(D), the sharded frame and training step on
+    ``torch.distributed`` (``nrdsample_tpu_torch/parallel/``), with the
+    ranks spawned on this one card: (B) kitchen1080 at 1920x1080 sharded
+    over SHARD_RANKS ranks (the backend ``backend_for`` picks: gloo, two
+    ranks on one card), SHARD_FRAMES frames: rank 0's color, final, shadow
+    and every History leaf within SHARD_TOL of this process's frames; every
+    rank's trace launches the dense hit and probe kernels on its own block
+    of pixels; each rank's copy of rank 0's scene (``broadcast_scene``
+    without a device) lies on the rank's card; wall ms a frame and peak
+    memory a rank. (C) one sharded
+    training step at 1920x1080: its gradients within SHARD_TOL of the
+    largest |entry| of this process's ``value_and_grad``, the new materials
+    finite. (D) ``dryrun_multichip(DRYRUN_RANKS)`` at 128x128. A rank that
+    fails fails the phase."""
+    import tempfile
+
+    from nrdsample_tpu_torch.parallel import distributed, dryrun
+    from nrdsample_tpu_torch.pipeline import bench_configs, frame, train
+
+    torch.cuda.empty_cache()
+    out = {}
+    spec = {"name": "kitchen1080"}
+    with tempfile.TemporaryDirectory() as tmp:
+        frames_ref, grads_ref = os.path.join(tmp, "frames.npz"), os.path.join(tmp, "grads.npz")
+        ctx, scene, cam, cfg, settings = bench_configs.setup("kitchen1080", dev)
+        runs = []
+        for _ in range(2):      # twice: the single-process frames are the same bits each run
+            hist = frame.History.create(cfg, dev)
+            with torch.no_grad():
+                for _ in range(SHARD_FRAMES):
+                    res, hist = frame.render_frame(ctx, scene, cam, cfg, settings, hist)
+            runs.append({k: v.cpu().numpy() for k, v in dryrun.frame_planes(res, hist).items()})
+        repeat = dryrun.max_abs_diff(runs[1], runs[0])
+        worst_repeat = max(repeat, key=repeat.get)
+        print(f"[sharding] (B) kitchen1080 single-process frames rendered twice: worst "
+              f"{worst_repeat} {repeat[worst_repeat]:.3g} over {len(repeat)} planes")
+        out["repeat_gap"] = repeat[worst_repeat]
+        np.savez(frames_ref, **runs[0])
+        del runs
+        diff, rest = train.split_materials(scene.materials)
+        target = torch.zeros((cfg.n_pixels, 3), dtype=torch.float32, device=dev)
+        _, grads = train.value_and_grad(train.make_loss_fn(ctx, cfg), diff, rest, scene, cam,
+                                        settings, frame.History.create(cfg, dev), target)
+        np.savez(grads_ref, **{k: v.cpu().numpy() for k, v in grads.items()})
+        del ctx, scene, hist, res, grads, target
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ranks = distributed.run_ranks(dryrun.sharded_frames_rank, SHARD_RANKS,
+                                      (spec, SHARD_FRAMES, frames_ref), device="cuda",
+                                      timeout_s=SHARD_TIMEOUT_S)
+        diffs = ranks[0]["diffs"]
+        worst = max(diffs, key=diffs.get)
+        print("[sharding] (B) planes past 0: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in sorted(diffs.items(), key=lambda kv: -kv[1]) if v > 0))
+        if not diffs[worst] < SHARD_TOL:
+            fail(f"the sharded kitchen1080 frame differs from the single-process frame: "
+                 f"{worst} max |diff| {diffs[worst]:.3g}")
+        for r, rr in enumerate(ranks):
+            got, own, same = rr["broadcast"]
+            if got != own or own == "cpu" or not same:
+                fail(f"rank {r}: broadcast_scene gave a scene on {got} (the rank's device "
+                     f"{own}), its triangles equal to the rank's own: {same}")
+            for k in ("dense_hit", "emissive_probe"):
+                if rr["launches"][k] < 1:
+                    fail(f"rank {r}'s sharded frames launched {k} {rr['launches'][k]} times")
+            print(f"[sharding] (B) kitchen1080 {SHARD_RANKS} ranks, rank {r}: pixels "
+                  f"[{rr['pixels'][0]}, {rr['pixels'][1]}), wall ms per sharded frame "
+                  + ", ".join(f"{m:.1f}" for m in rr["ms"])
+                  + f", peak {rr['peak_bytes']} B, launches over {SHARD_FRAMES} frames "
+                  f"{rr['launches']}, rank 0's scene broadcast onto {got} ({card})")
+        print(f"[sharding] (B) rank 0 against the single-process frames: worst {worst} "
+              f"{diffs[worst]:.3g}, color {diffs['color']:.3g}, final {diffs['final']:.3g}, "
+              f"shadow {diffs['shadow']:.3g} over {len(diffs)} planes "
+              f"({time.perf_counter() - t0:.1f} s with the ranks' start)")
+        out["frames"] = ranks
+
+        t0 = time.perf_counter()
+        steps = distributed.run_ranks(dryrun.sharded_grads_rank, SHARD_RANKS, (spec, grads_ref),
+                                      device="cuda", timeout_s=SHARD_TIMEOUT_S)
+    gaps = steps[0]["gaps"]
+    if not all(g <= SHARD_TOL for g in gaps.values()):
+        fail(f"sharded gradients against the single-process step: {gaps} (limit {SHARD_TOL})")
+    if not (np.isfinite(steps[0]["loss"])
+            and all(np.isfinite(v).all() for v in steps[0]["materials"].values())):
+        fail("the sharded step gave a non-finite loss or materials")
+    print(f"[sharding] (C) kitchen1080 sharded step, {SHARD_RANKS} ranks: gradient gaps "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + " of the largest |entry|; wall ms of the gradients "
+          + ", ".join(f"{r['grads_ms']:.1f}" for r in steps) + ", of the step "
+          + ", ".join(f"{r['step_ms']:.1f}" for r in steps)
+          + ", peak " + ", ".join(f"{r['peak_bytes']}" for r in steps)
+          + f" B ({card}; {time.perf_counter() - t0:.1f} s with the ranks' start)")
+    out["steps"] = steps
+
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.dryrun_multichip(DRYRUN_RANKS, dev, timeout_s=SHARD_TIMEOUT_S)
+    print(f"[sharding] (D) dryrun_multichip({DRYRUN_RANKS}) in {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+    return out
+
+
+BVH8_RES = 256                   # the Cornell box's camera rays of the bvh8 check
+
+
+def check_bvh8(dev, card: str) -> dict:
+    """Phase 11 (E), the bvh8 traversal mode on the card: the Cornell box's
+    BVH8_RES x BVH8_RES camera rays through ``traverse_bvh8`` (plain
+    PyTorch) against the dense hit kernel: the same t on every ray and the
+    same triangle (through the BVH's permutation) except on exact ties,
+    where both triangles give that t; ``occluded_bvh8`` against the dense
+    any-hit on the same rays cut at half their hit distance and at twice
+    it. Prints each path's ms (CUDA events, one call)."""
+    from nrdsample_tpu_torch.ops import intersect, traversal
+    from nrdsample_tpu_torch.scene import camera, procedural
+    from nrdsample_tpu_torch.scene.types import look_at
+
+    cam = look_at([0.0, -3.2, 1.0], [0.0, 0.0, 1.0], fov_y_deg=39.0, device=dev)
+    n = BVH8_RES * BVH8_RES
+    o, d, _ = camera.camera_rays(cam, BVH8_RES, BVH8_RES,
+                                 torch.arange(n, dtype=torch.int32, device=dev),
+                                 torch.tensor(0, dtype=torch.int32, device=dev))
+    ctxs = {m: traversal.build_context(procedural.cornell_box(), mode=m, device=dev)[0]
+            for m in ("dense", "bvh8")}
+    res, ms = {}, {}
+    for m, ctx in ctxs.items():
+        traversal.closest_hit(ctx, o, d)      # warm-up
+        ms[m], res[m] = once_ms(lambda: traversal.closest_hit(ctx, o, d))
+    dense, wide = res["dense"], res["bvh8"]
+    if not torch.equal(wide["t"], dense["t"]):
+        fail(f"bvh8 t differs from the dense kernel's on {int((wide['t'] != dense['t']).sum())} "
+             f"of {n} camera rays")
+    mapped = torch.from_numpy(ctxs["bvh8"].order).to(dev)[wide["tri"].long()].to(torch.int32)
+    ties = torch.nonzero(mapped != dense["tri"]).flatten()
+    tr = ctxs["dense"].tris
+    for i in ties.tolist():
+        ts = [intersect.intersect_dense(o[i:i + 1], d[i:i + 1], tr.p0[j:j + 1], tr.e1[j:j + 1],
+                                        tr.e2[j:j + 1])["t"] for j in (int(mapped[i]),
+                                                                        int(dense["tri"][i]))]
+        if not (torch.equal(ts[0], ts[1]) and torch.equal(ts[0], dense["t"][i:i + 1])):
+            fail(f"bvh8 and the dense kernel hit different triangles on camera ray {i} "
+                 "that do not tie")
+    occ_err = 0
+    for scale in (0.5, 2.0):
+        t_max = dense["t"] * scale
+        got = traversal.any_hit(ctxs["bvh8"], o, d, t_max)
+        occ_err += int((got != traversal.any_hit(ctxs["dense"], o, d, t_max)).sum())
+    if occ_err:
+        fail(f"occluded_bvh8 differs from the dense any-hit on {occ_err} rays")
+    print(f"[bvh8] Cornell box {BVH8_RES}x{BVH8_RES} camera rays: t equal on all {n}, the "
+          f"same triangle but for {ties.numel()} exact ties, any-hit equal at 0.5x and 2x; "
+          f"traverse_bvh8 {ms['bvh8']:.3f} ms, the dense hit kernel {ms['dense']:.3f} ms ({card})")
+    return {"ties": ties.numel(), "ms": ms}
+
+
 def main() -> int:
     import argparse
 
@@ -2962,6 +3155,15 @@ def main() -> int:
         for k, e in errs.items():
             frame_err[k] = max(frame_err.get(k, 0.0), e)
 
+    # ---- 11. sharding on torch.distributed: the collectives' transport,
+    # kitchen1080 sharded over two ranks on the card (frames and a training
+    # step against this process's), dryrun_multichip(4); the bvh8 mode ----
+    t0 = time.perf_counter()
+    transport = check_transport(card)
+    sharding = check_sharding(dev, card)
+    bvh8 = check_bvh8(dev, card)
+    print(f"[sharding] phase in {time.perf_counter() - t0:.1f} s")
+
     dense = results[("dense", "kitchen", "per-ray")]
     prim = packet_res["primary"]
     bil = bil_res[(9, "3")]
@@ -3079,6 +3281,15 @@ def main() -> int:
               f"{w}x{h} {ms:.1f} ms" for w, h, ms, _ in animated["B"])
           + f"; cli animate {animated['C']:.1f} s; card vs CPU worst outlier share "
           f"{animated['D'][0][0]:.6f}, resized history max|err| {animated['D'][2]:.3g} ({card})")
+    fr, st = sharding["frames"], sharding["steps"]
+    print(f"[sharding summary] backend {transport['backend']}, staged through the host "
+          f"{transport['staged']}; kitchen1080 over {SHARD_RANKS} ranks on one card: wall ms "
+          f"per sharded frame " + ", ".join(f"rank {r}: " + "/".join(f"{m:.1f}" for m in x["ms"])
+                                            for r, x in enumerate(fr))
+          + ", peak B per rank " + ", ".join(str(x["peak_bytes"]) for x in fr)
+          + f"; launches per sharded frame per rank {fr[0]['launches']} (over {SHARD_FRAMES}); "
+          f"step wall ms {st[0]['step_ms']:.1f}, peak {st[0]['peak_bytes']} B; dryrun parity "
+          f"{sharding['dryrun']['err']:.3g}; bvh8 ties {bvh8['ties']} ({card})")
     print(f"gpu: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,16 +9,17 @@ first use and bound through ``ctypes``.
 Ported so far: every branch of ``pipeline.frame.render_frame`` (every
 denoiser, the radiance caches, TAA, the output-resolution chain with the
 learned SR and RR networks, the debug views), for scenes in dense mode
-(<= 1024 triangles) and cluster mode, with glass, textures, normal maps
-and the alpha test; glTF scenes (``scene.gltf.load_gltf``); the record
-replay and its golden gate (``pipeline.replay``); the single-device
+(<= 1024 triangles), cluster mode and the bvh8 mode, with glass, textures,
+normal maps and the alpha test; glTF scenes (``scene.gltf.load_gltf``);
+instanced, animated scenes (``pipeline.animate``); the record replay, record
+saving and the golden gate (``pipeline.records``, ``pipeline.replay``); the
 training step, its backward bench and checkpoints (``pipeline/train.py``,
-``checkpoint.py``), with JAX's gradient conventions; and the ``render``,
-``optimize`` and ``scenes`` commands of ``python -m
-nrdsample_tpu_torch.cli``. Entry points
-put their tensors on the CUDA card unless the caller passes
-``device="cpu"``. Instanced scenes (the animate path, a later slice) raise
-``NotImplementedError``.
+``checkpoint.py``), with JAX's gradient conventions; the frame and the
+training step sharded over ``torch.distributed`` ranks (``parallel/``);
+``utils.log`` and ``utils.profiling``; and the ``render``, ``optimize``,
+``animate`` and ``scenes`` commands of ``python -m nrdsample_tpu_torch.cli``.
+Entry points put their tensors on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 
 __version__ = "0.1.0"

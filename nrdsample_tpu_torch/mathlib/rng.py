@@ -83,6 +83,39 @@ def weyl1d(n, seed: int = 0) -> torch.Tensor:
     return torch.remainder(float(seed) + n * 0.618034, 1.0)
 
 
+def weyl2d(n) -> torch.Tensor:
+    """2-D Weyl sequence with the plastic-number basis (the R2 sequence):
+    [..., 2] in [0, 1)."""
+    n = torch.as_tensor(n).to(torch.float32)[..., None]
+    alphas = torch.tensor([0.7548776662, 0.5698402910], dtype=torch.float32, device=n.device)
+    return torch.remainder(n * alphas, 1.0)
+
+
+def _halton_iters(base: int) -> int:
+    import math
+
+    return max(1, int(math.ceil(32 * math.log(2) / math.log(base))))
+
+
+def halton(n, base: int) -> torch.Tensor:
+    """Radical inverse of the int32 ``n`` in ``base`` (float32, unrolled
+    over the 32-bit range)."""
+    n = torch.as_tensor(n).to(torch.int32)
+    result = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    f = torch.tensor(1.0, dtype=torch.float32, device=n.device)
+    inv_b = torch.tensor(1.0 / base, dtype=torch.float32, device=n.device)
+    for _ in range(_halton_iters(base)):
+        f = f * inv_b
+        result = result + f * torch.remainder(n, base).to(torch.float32)
+        n = torch.div(n, base, rounding_mode="floor")
+    return result
+
+
+def halton23(n) -> torch.Tensor:
+    """The (2, 3) Halton point [..., 2] of camera jitter."""
+    return torch.stack([halton(n, 2), halton(n, 3)], dim=-1)
+
+
 def checkerboard(px, py, frame) -> torch.Tensor:
     """2x2 checkerboard selector alternating per frame: int32 0/1."""
     f = torch.as_tensor(frame, device=px.device).to(torch.int32)

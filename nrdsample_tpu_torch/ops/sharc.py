@@ -150,7 +150,15 @@ def update(state: SharcState, pos, normal, radiance, cam_pos, frame, mask=None,
     owned = mask_f & (keys[slot_f] == csum_f)
     add = torch.cat([rad_f, torch.ones_like(rad_f[..., :1])], dim=-1)
     add = torch.where(owned[..., None], add, 0.0)
-    accum = state.accum.index_add(0, slot_f, add)
+    # the CPU's index_add adds each slot's samples one after another in their
+    # order, as XLA's serial scatter does; on the card index_add's float
+    # atomics add in any order, so a frame's bits change from run to run, and
+    # index_put's accumulation (a sort by slot, then a sum per slot) gives the
+    # same bits on every run
+    if add.is_cuda:
+        accum = state.accum.index_put((slot_f,), add, accumulate=True)
+    else:
+        accum = state.accum.index_add(0, slot_f, add)
     frame_i = torch.as_tensor(frame, device=slot_f.device).to(torch.int32)
     seen = torch.where(owned, frame_i, state.last_seen[slot_f])
     last_seen = state.last_seen.clone()

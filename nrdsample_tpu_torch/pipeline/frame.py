@@ -127,7 +127,7 @@ def _shadow_translucency_march(tctx: traversal.TraceContext, scene: Scene, cfg: 
 
 
 def trace_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
-                history: History, pixel_idx=None, dynamics=None):
+                history: History, pixel_idx=None, dynamics=None, probe_mesh=None):
     """Phase 1 — the SHARC update pass, the opaque trace, the stress tests
     and sanitization, and with glass the shadow translucency march and the
     glass delta chains. ``ctx`` is a
@@ -135,13 +135,21 @@ def trace_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Set
     (InstancedScene, m_curr, m_prev) of an animated frame. Returns (gb, aux): per-pixel planes
     (with glass: glass_color, glass_mask and the tinted shadow) and the
     pixel-independent outputs {"sharc": the updated cache, "probes": the
-    probe planes}."""
+    probe planes}.
+
+    ``pixel_idx``, flat int32 pixel indices (the whole image when None),
+    selects the pixels: every per-pixel plane is aligned with it, and each
+    pixel's RNG is keyed by its index, so a block traces what the whole
+    image traces there. ``probe_mesh`` (``parallel.mesh.PixelMesh``)
+    splits the SHARC probe traces over its ranks
+    (``sharc_update.sharc_update_pass``); the cache and the probe planes
+    in ``aux`` stay whole on every rank."""
     ctxs = ctx if isinstance(ctx, traversal.SceneContexts) else traversal.SceneContexts(ctx, None)
     frame = history.frame_index
     sharc_state, probes = history.sharc, None
     if cfg.use_sharc and sharc_state is not None:
         sharc_state, probes = sharc_update.sharc_update_pass(ctxs, scene, cam, cfg, settings, frame,
-                                                             sharc_state)
+                                                             sharc_state, probe_mesh=probe_mesh)
     gb = trace_opaque.trace_opaque(ctxs.opaque, scene, cam, cfg, settings, frame, pixel_idx,
                                    sharc_state if cfg.use_sharc else None,
                                    history.l1 if cfg.use_l1_cache else None,
@@ -502,15 +510,10 @@ def image_frame(cfg: RenderConfig, settings: Settings, cam: Camera,
     return image_frame_finish(cfg, settings, cam, history, gb, aux, mid, reset_history)
 
 
-def render_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
-                 history: History, reset_history=False, pixel_idx=None, dynamics=None):
-    """One frame: trace_frame then image_frame. ``ctx`` is a TraceContext or,
-    for a scene with glass, the SceneContexts of ``build_scene_contexts``.
-    ``dynamics``, an optional (InstancedScene, m_curr, m_prev), gives moving
-    instances their true motion vectors. Returns (outputs, history).
-    Each phase is a ``torch.profiler`` range of its own name, which
-    ``profile_frame`` reads."""
-    # dynamic camFov: 0 keeps the camera's own FoV
+def frame_inputs(cam: Camera, settings: Settings, history: History):
+    """(cam, settings) of a frame: the dynamic camFov (0 keeps the
+    camera's own FoV) and the blink pulse on the emissive cubes'
+    intensity."""
     fov = settings.cam_fov.to(torch.float32)
     cam = dataclasses.replace(
         cam,
@@ -526,6 +529,18 @@ def render_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Se
             settings.emission_intensity_cubes,
         ),
     )
+    return cam, settings
+
+
+def render_frame(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
+                 history: History, reset_history=False, pixel_idx=None, dynamics=None):
+    """One frame: trace_frame then image_frame. ``ctx`` is a TraceContext or,
+    for a scene with glass, the SceneContexts of ``build_scene_contexts``.
+    ``dynamics``, an optional (InstancedScene, m_curr, m_prev), gives moving
+    instances their true motion vectors. Returns (outputs, history).
+    Each phase is a ``torch.profiler`` range of its own name, which
+    ``profile_frame`` reads."""
+    cam, settings = frame_inputs(cam, settings, history)
     with torch.profiler.record_function("trace_frame"):
         gb, aux = trace_frame(ctx, scene, cam, cfg, settings, history, pixel_idx=pixel_idx,
                               dynamics=dynamics)

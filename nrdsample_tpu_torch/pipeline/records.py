@@ -1,6 +1,6 @@
 """Settings + camera test records (counterpart of
-``nrdsample_tpu/pipeline/records.py``: loading, and the replay harness of
-``nrdsample_tpu/pipeline/replay.py``). A record is one entry of a
+``nrdsample_tpu/pipeline/records.py``: loading, saving, and the replay
+harness of ``nrdsample_tpu/pipeline/replay.py``). A record is one entry of a
 ``Tests/<scene>.json`` list; its ``render`` block pins RenderConfig fields
 and its ``animation`` block, where present, a few frames: with mode "orbit"
 (the default) a short camera orbit, with "blink" a still camera.
@@ -29,6 +29,17 @@ from nrdsample_tpu_torch.scene import procedural
 from nrdsample_tpu_torch.scene.types import Camera, look_at
 
 RECORD_VERSIONS = (1, 2)
+RECORD_VERSION = RECORD_VERSIONS[-1]   # the version record_to_dict writes
+
+#: RenderConfig fields a record may pin (by name, enums as int); every other
+#: field stays at the replay harness's defaults
+RENDER_FIELDS = (
+    "denoiser", "tracing_mode", "nrd_mode", "bounce_num", "rpp",
+    "psr_bounce_num", "use_sharc", "use_confidence", "use_taa",
+    "use_translucency", "use_hair_sss", "use_l1_cache",
+    "use_inf_stress_test", "use_drs_stress_test", "use_firefly_test",
+    "use_material_id_test", "use_sanitization",
+)
 TESTS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "Tests")
 
@@ -79,6 +90,59 @@ CHECK_ME: dict[str, list[int]] = {
 }
 
 _ENUMS = {"denoiser": Denoiser, "tracing_mode": TracingMode, "nrd_mode": NrdMode}
+
+
+def static_bucket(render: dict) -> str:
+    """A stable key of a record's ``render`` pins: records with the same key
+    replay with the same RenderConfig (the JAX harness's compile bucket)."""
+    return ",".join(f"{k}={render[k]}" for k in sorted(render))
+
+
+def record_to_dict(settings: Settings, cam: Camera, render: dict | None = None,
+                   animation: dict | None = None) -> dict:
+    """One record of ``settings`` and ``cam``: ``render``, RenderConfig pins
+    (fields of RENDER_FIELDS, enums as int); ``animation``, e.g. {"mode":
+    "orbit", "frames": 3}."""
+    def host(v):
+        return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+    d = {
+        "version": RECORD_VERSION,
+        "settings": {f.name: host(getattr(settings, f.name)).tolist()
+                     for f in dataclasses.fields(settings)},
+        "camera": {
+            "view_to_world": host(cam.view_to_world).tolist(),
+            **{k: float(host(getattr(cam, k))) for k in ("tan_half_fov_y", "aspect", "near_z",
+                                                          "aperture", "focal_distance",
+                                                          "ortho")},
+        },
+    }
+    if render:
+        unknown = set(render) - set(RENDER_FIELDS)
+        if unknown:
+            raise ValueError(f"unknown render fields {sorted(unknown)}")
+        d["render"] = {k: v if isinstance(v, bool) else int(v) for k, v in render.items()}
+    if animation:
+        d["animation"] = animation
+    return d
+
+
+def save_record(path: str, settings: Settings, cam: Camera, index: int | None = None) -> int:
+    """Append the record of (settings, cam) to the scene's JSON file at
+    ``path``, or overwrite record ``index``; returns the index of the file's
+    last record, as the JAX package does."""
+    recs = []
+    if os.path.exists(path):
+        with open(path) as f:
+            recs = json.load(f)
+    rec = record_to_dict(settings, cam)
+    if index is None or index >= len(recs):
+        recs.append(rec)
+    else:
+        recs[index] = rec
+    with open(path, "w") as f:
+        json.dump(recs, f, indent=1)
+    return len(recs) - 1
 
 
 def dict_to_record(d: dict, device=None) -> tuple[Settings, Camera]:

@@ -7,7 +7,8 @@ probe) carry no gradient; gradients flow through the continuous shading
 factors, with JAX's conventions at the points where a function has no
 derivative (``mathlib/geometry.clip`` and ``absolute``). On the card the
 three denoiser kernels run their forward and differentiate their plain
-versions (``ops/_kernels.with_plain_backward``).
+versions (``ops/_kernels.with_plain_backward``). ``make_sharded_train_step``
+takes the same step over the ranks of a ``parallel.mesh.PixelMesh``.
 
     python -m nrdsample_tpu_torch.pipeline.train [--size 512] [--iters 4] [--cpu]
 
@@ -62,14 +63,29 @@ def render_color(ctx, cfg, materials: Materials, scene, cam, settings, history, 
     return out["color"], new_h
 
 
-def make_loss_fn(ctx, cfg):
+def make_loss_fn(ctx, cfg, mesh=None):
     """The L2 image loss against a target, as a function of the
-    differentiable material dict (see ``split_materials``)."""
+    differentiable material dict (see ``split_materials``). With ``mesh``
+    (a ``parallel.mesh.PixelMesh``) the frame is the two-phase sharded
+    frame (``parallel.mesh.sharded_render_fn``): each rank traces its block
+    of pixels (``pixel_idx``, the rank's ``shard_pixels`` when None) and of
+    SHARC probes, and every rank runs the image phase and the loss over the
+    whole image against the whole ``target``."""
+    render = None
+    if mesh is not None:
+        from nrdsample_tpu_torch.parallel.mesh import sharded_render_fn
+
+        render = sharded_render_fn(ctx, cfg, mesh)
 
     def loss_fn(mat_diff: dict, mat_rest: dict, scene, cam, settings, history, target,
                 pixel_idx=None):
         materials = merge_materials(mat_diff, mat_rest)
-        color, _ = render_color(ctx, cfg, materials, scene, cam, settings, history, pixel_idx)
+        if render is None:
+            color, _ = render_color(ctx, cfg, materials, scene, cam, settings, history, pixel_idx)
+        else:
+            out, _ = render(dataclasses.replace(scene, materials=materials), cam, settings,
+                            history, pixel_idx)
+            color = out["color"]
         err = color - target
         return torch.sum(err * err)
 
@@ -83,37 +99,55 @@ def project_materials(diff: dict) -> dict:
             for k, v in diff.items()}
 
 
-def value_and_grad(loss_fn, mat_diff: dict, *args):
+def value_and_grad(loss_fn, mat_diff: dict, *args, mesh=None):
     """(loss, {field: gradient}) of ``loss_fn(mat_diff, *args)`` with respect
     to every field of ``mat_diff``; a field the loss does not reach gets
-    zeros, as ``jax.value_and_grad`` gives."""
+    zeros, as ``jax.value_and_grad`` gives. With ``mesh`` of more than one
+    rank (a sharded ``make_loss_fn``), each rank's share of the gradients
+    is summed over the ranks (one all_reduce), so every rank holds the
+    single-rank gradients."""
     params = {k: v.detach().requires_grad_(True) for k, v in mat_diff.items()}
     with torch.enable_grad():
         loss = loss_fn(params, *args)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
-                           for (k, p), g in zip(params.items(), grads)}
+    g = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(params.items(), grads)}
+    if mesh is not None and mesh.size > 1:
+        from nrdsample_tpu_torch.parallel import distributed
+
+        flat = distributed.collective("all_reduce", torch.cat([v.reshape(-1) for v in g.values()]),
+                                      mesh.group)
+        g = {k: part.reshape(v.shape) for (k, v), part in
+             zip(g.items(), torch.split(flat, [v.numel() for v in g.values()]))}
+    return loss.detach(), g
 
 
-def make_train_step(ctx, cfg, lr: float = 0.05):
+def make_train_step(ctx, cfg, lr: float = 0.05, mesh=None):
     """One SGD step on the material parameters: the sum-of-squares loss,
     then p - lr * g and the projection, without a gradient. The loss is a
     SUM over pixels, so a stable lr scales like 1/n_pixels (the
-    inverse-rendering tests use 2e-4 at 32x32).
+    inverse-rendering tests use 2e-4 at 32x32). With ``mesh`` the step
+    runs over its ranks (``make_loss_fn``, ``value_and_grad``), alike on
+    every rank.
 
-    step(materials, scene, cam, settings, history, target) -> (loss, new
-    materials)."""
-    loss_fn = make_loss_fn(ctx, cfg)
+    step(materials, scene, cam, settings, history, target, pixel_idx=None)
+    -> (loss, new materials)."""
+    loss_fn = make_loss_fn(ctx, cfg, mesh)
 
-    def step(materials: Materials, scene, cam, settings, history, target):
+    def step(materials: Materials, scene, cam, settings, history, target, pixel_idx=None):
         mat_diff, mat_rest = split_materials(materials)
         loss, g = value_and_grad(loss_fn, mat_diff, mat_rest, scene, cam, settings, history,
-                                 target)
+                                 target, pixel_idx, mesh=mesh)
         with torch.no_grad():
             new_diff = {k: p.detach() - lr * g[k] for k, p in mat_diff.items()}
             return loss, merge_materials(project_materials(new_diff), mat_rest)
 
     return step
+
+
+def make_sharded_train_step(ctx, cfg, mesh, lr: float = 0.05):
+    """``make_train_step`` over the ranks of ``mesh`` (the JAX package's
+    name)."""
+    return make_train_step(ctx, cfg, lr, mesh)
 
 
 def _sync(device: torch.device):

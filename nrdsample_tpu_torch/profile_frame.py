@@ -1,6 +1,7 @@
 """Where the time of a frame goes on the card.
 
     python -m nrdsample_tpu_torch.profile_frame [config] [--frames N] [--warmup N] [--train]
+        [--range MODULE:FUNCTION ...]
 
 Renders one configuration of ``pipeline/bench_configs.py`` (shaderballs512
 by default) through ``frame.render_frame`` on the CUDA card: ``--warmup``
@@ -18,12 +19,18 @@ the profiled wall time several-fold).
 ``--train`` profiles ``pipeline/train.make_train_step`` on the configuration
 instead (a zero target, a fresh History each step): its backward's kernels
 run outside the two ranges and are counted as "outside the phases".
+``--range`` wraps a function of the port (e.g.
+``nrdsample_tpu_torch.ops.sharc:update``) in a range of its own for the run
+and prints the device time of the kernels it launches (forward only).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import functools
+import importlib
 import re
 import time
 
@@ -35,7 +42,36 @@ from nrdsample_tpu_torch.pipeline import bench_configs, frame, train as train_mo
 PHASES = ("trace_frame", "image_frame")
 
 
-def profile(name: str, n_frames: int, warmup: int, train: bool = False) -> list[str]:
+@contextlib.contextmanager
+def _ranges(specs):
+    """Each "module:function" of ``specs`` wrapped in a record_function
+    range named after it while the block runs."""
+    saved = []
+    for spec in specs:
+        mod_name, fn_name = spec.split(":")
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, fn_name)
+
+        def wrapped(*a, _fn=fn, _spec=spec, **kw):
+            with torch.profiler.record_function(_spec):
+                return _fn(*a, **kw)
+
+        saved.append((mod, fn_name, fn))
+        setattr(mod, fn_name, functools.wraps(fn)(wrapped))
+    try:
+        yield
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def profile(name: str, n_frames: int, warmup: int, train: bool = False,
+            ranges: tuple = ()) -> list[str]:
+    with _ranges(ranges):
+        return _profile(name, n_frames, warmup, train, ranges)
+
+
+def _profile(name, n_frames, warmup, train, ranges) -> list[str]:
     ctx, scene, cam, cfg, settings = bench_configs.setup(name)
     state = {"hist": frame.History.create(cfg)}
     if train:
@@ -74,17 +110,21 @@ def profile(name: str, n_frames: int, warmup: int, train: bool = False) -> list[
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if e.name in PHASES:
+        if e.name in PHASES or e.name in ranges:
             spans.append((e.time_range.start, e.time_range.end, e.name))
         else:
             kernels.append((e.time_range.start, e.time_range.elapsed_us() / 1e3 / n_frames, e.name))
     by_name = collections.defaultdict(lambda: [0.0, 0])
     phases = collections.defaultdict(float)
+    in_range = collections.defaultdict(float)
     for start, ms, kernel in kernels:
         by_name[kernel][0] += ms
         by_name[kernel][1] += 1
-        phase = next((p for a, b, p in spans if a <= start <= b), "outside the phases")
+        phase = next((p for a, b, p in spans if p in PHASES and a <= start <= b),
+                     "outside the phases")
         phases[phase] += ms
+        for r in {p for a, b, p in spans if p in ranges and a <= start <= b}:
+            in_range[r] += ms
     busy_ms = sum(v[0] for v in by_name.values())
     n_kernels = len(kernels) / n_frames
     card = torch.cuda.get_device_name(0)
@@ -98,6 +138,8 @@ def profile(name: str, n_frames: int, warmup: int, train: bool = False) -> list[
         f"unprofiled wall time, {n_kernels:.0f} kernels/{unit}",
         f"device ms/{unit} by phase: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items())),
+        *([f"device ms/{unit} in the ranges: "
+           + ", ".join(f"{r} {in_range[r]:.3f}" for r in ranges)] if ranges else []),
         f"kernels by device time (ms/{unit}, launches/{unit}, share of busy):",
     ]
 
@@ -126,10 +168,13 @@ def main() -> None:
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--train", action="store_true",
                    help="profile a training step (forward and backward) instead of a frame")
+    p.add_argument("--range", action="append", default=[], metavar="MODULE:FUNCTION",
+                   help="report the device time of this function's kernels")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device: the profile is of the card")
-    print("\n".join(profile(args.config, args.frames, args.warmup, args.train)))
+    print("\n".join(profile(args.config, args.frames, args.warmup, args.train,
+                            tuple(args.range))))
 
 
 if __name__ == "__main__":

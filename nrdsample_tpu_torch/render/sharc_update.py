@@ -11,7 +11,10 @@ again under the current lighting, for the history-confidence gradient. With
 through the glass delta events (FULL mode) so that the cache fills behind
 and through glass.
 
-Not ported: the probe sharding over a mesh axis.
+Under the sharded frame (``parallel/mesh.py``) each rank traces a contiguous
+block of the probe ids and the probe planes are gathered back to the whole
+grid, in canonical order, before the scatter into the cache
+(``sharc_update_pass``'s ``probe_mesh``).
 """
 
 from __future__ import annotations
@@ -81,14 +84,17 @@ def _delta_walk(ctxs: traversal.SceneContexts, scene: Scene, origin, direction, 
 
 
 def _trace_probe_paths(ctxs, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
-                       frame, mode: str = "curr"):
+                       frame, sidx: torch.Tensor | None = None, mode: str = "curr"):
     """Trace the 1/ds-resolution probe paths of frame index ``frame`` with
     that frame's RNG streams and ``cam``: a pure function of its arguments,
     so a previous frame index and camera replay that frame's paths under the
-    current lighting. ``mode`` "full" first walks the camera ray through
-    glass (``_delta_walk``). Returns (first_l (m, 3), probe_vz (m,), probe_n
-    (m, 3), per-vertex records {x, n, l, alive} stacked (depth, m, ...),
-    grad_lum (m,) with the dynamic-object term)."""
+    current lighting. ``sidx``, (m,) int32 probe ids, selects the probes
+    (the whole grid when None); each probe's RNG is keyed by its id, so a
+    block of ids traces what the whole grid traces there. ``mode`` "full"
+    first walks the camera ray through glass (``_delta_walk``). Returns
+    (first_l (m, 3), probe_vz (m,), probe_n (m, 3), per-vertex records {x,
+    n, l, alive} stacked (depth, m, ...), grad_lum (m,) with the
+    dynamic-object term)."""
     ctxs = _contexts(ctxs)
     ctx = ctxs.opaque
     ds = cfg.sharc_downscale
@@ -99,7 +105,8 @@ def _trace_probe_paths(ctxs, scene: Scene, cam: Camera, cfg: RenderConfig, setti
     unproject = cam_mod.unproject_scale(cam, cfg.height)
 
     # the low-res grid on full-res pixels, with a per-frame sub-pixel offset
-    sidx = torch.arange(sw * sh, dtype=torch.int32, device=dev)
+    if sidx is None:
+        sidx = torch.arange(sw * sh, dtype=torch.int32, device=dev)
     off = rng.hash_u32(sidx, frame, 9001)
     px = torch.clamp_max((sidx % sw) * ds + (off[..., 0] % ds).to(torch.int32), cfg.width - 1)
     py = torch.clamp_max(torch.div(sidx, sw, rounding_mode="floor") * ds
@@ -172,22 +179,49 @@ def _rev_flat(a: torch.Tensor) -> torch.Tensor:
 
 
 def sharc_update_pass(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, settings: Settings,
-                      frame, state: sharc.SharcState):
+                      frame, state: sharc.SharcState, probe_mesh=None):
     """Trace the probe paths, scatter their vertices into the cache and
     resolve it. ``ctx`` is a TraceContext or SceneContexts. Returns (resolved
     state, probes): the probe planes at 1/ds resolution for the
     history-confidence gradient, with the previous frame's paths re-traced
     under the current lighting when ``use_confidence``. With
     ``sharc_full_mode`` and a transparent context, the vertices of a second
-    trace through glass join the same scatter (it adds no gradient)."""
+    trace through glass join the same scatter (it adds no gradient).
+
+    ``probe_mesh``, a ``parallel.mesh.PixelMesh`` of more than one rank,
+    splits every probe trace (the current paths, the FULL pass, the
+    previous frame's re-trace): rank r traces the contiguous ids [r *
+    n_loc, (r + 1) * n_loc) cut at the grid's end, n_loc = ceil(n / ranks),
+    and ``mesh.gather_probes`` puts the planes back in canonical order
+    before the scatter, so the cache and the probe planes equal the
+    unsplit pass's on every rank. The gather's backward sums over the
+    ranks: every rank's pixels read the whole cache."""
     ctxs = _contexts(ctx)
     ds = cfg.sharc_downscale
     sw, sh = max(cfg.width // ds, 1), max(cfg.height // ds, 1)
-    first_l, probe_vz, probe_n, stacked, grad_lum = _trace_probe_paths(ctxs, scene, cam, cfg,
-                                                                       settings, frame)
+    n_px = sw * sh
+    sidx, gather = None, None
+    if probe_mesh is not None and probe_mesh.size > 1:
+        from nrdsample_tpu_torch.parallel import mesh as mesh_mod
+
+        lo, hi = mesh_mod.block_bounds(n_px, probe_mesh.size, probe_mesh.rank)
+        sidx = torch.arange(lo, hi, dtype=torch.int32, device=scene.tris.p0.device)
+
+        def gather(a, dim):
+            return mesh_mod.gather_probes(a, probe_mesh, n_px, dim)
+
+    def trace(cam_t, frame_t, mode="curr"):
+        out = _trace_probe_paths(ctxs, scene, cam_t, cfg, settings, frame_t, sidx=sidx, mode=mode)
+        if gather is None:
+            return out
+        first_l, probe_vz, probe_n, stacked, grad_lum = out
+        return (gather(first_l, 0), gather(probe_vz, 0), gather(probe_n, 0),
+                {k: gather(v, 1) for k, v in stacked.items()}, gather(grad_lum, 0))
+
+    first_l, probe_vz, probe_n, stacked, grad_lum = trace(cam, frame)
     xs, ns, ls, ms = (_rev_flat(stacked[k]) for k in ("x", "n", "l", "alive"))
     if cfg.sharc_full_mode and ctxs.transparent is not None:
-        stacked_f = _trace_probe_paths(ctxs, scene, cam, cfg, settings, frame, mode="full")[3]
+        stacked_f = trace(cam, frame, mode="full")[3]
         xs, ns, ls, ms = (torch.cat([a, _rev_flat(stacked_f[k])])
                           for a, k in zip((xs, ns, ls, ms), ("x", "n", "l", "alive")))
     # LOD dithering on the write side too, so both rings near a level
@@ -205,8 +239,7 @@ def sharc_update_pass(ctx, scene: Scene, cam: Camera, cfg: RenderConfig, setting
     if cfg.use_confidence:
         prev_cam = dataclasses.replace(cam, view_to_world=cam.view_to_world_prev,
                                        jitter=cam.jitter_prev)
-        _, prev_vz, _, _, prev_grad_lum = _trace_probe_paths(ctxs, scene, prev_cam, cfg, settings,
-                                                             frame - 1)
+        _, prev_vz, _, _, prev_grad_lum = trace(prev_cam, frame - 1)
         probes["prev_retrace_lum"] = prev_grad_lum.reshape(sh, sw)
         probes["prev_retrace_vz"] = prev_vz.reshape(sh, sw)
     return sharc.resolve(state, frame), probes
